@@ -7,10 +7,12 @@ Pallas kernels on the ported path are hand-written CUDA C++ for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use (``_build.py``) and loaded
 with ``ctypes``.
 
-Ported so far (the serving slice): kernels, the Gaussian likelihood, the
+Ported so far (two serving slices): kernels, the Gaussian likelihood, the
 Cholesky ClusterGP oracle, the dense forward CG solver with its
 ``"xla"``/``"pallas"``/``"pallas_resident"`` routes, ``CGGP.posterior``
-(``"cg"``/``"chol"``) and ``predict_in_batches``.
+(``"cg"``/``"chol"``) and ``predict_in_batches``; the matrix-free
+``ImplicitCGGP`` serving path with the pivoted-Cholesky spectral
+preconditioner and the fused Gram-matvec kernel.
 
 Entry points default to ``device="cuda"`` and raise when no card is present
 unless the caller asks for ``device="cpu"``; they never fall back quietly.

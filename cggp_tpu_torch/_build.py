@@ -122,6 +122,9 @@ def load() -> ctypes.CDLL:
             lib.cggp_cg_grid.restype = i32
             lib.cggp_pallas_cg_solve.argtypes = [ptr] * 9 + [i32, i32, f32, i32, i32, ptr]
             lib.cggp_pallas_cg_solve.restype = i32
+            lib.cggp_gram_matvec.argtypes = ([ptr] * 6 + [i32] * 4 + [ctypes.c_longlong] * 4
+                                             + [i32, ptr])
+            lib.cggp_gram_matvec.restype = i32
             lib.cggp_error_string.argtypes = [i32]
             lib.cggp_error_string.restype = ctypes.c_char_p
             _lib = lib

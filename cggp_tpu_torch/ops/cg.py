@@ -19,9 +19,15 @@ back).  The loop of ``"xla"``/``"pallas"`` reads its stop rule on the host
 once per iteration; ``"pallas_resident"`` decides on the device and the
 call returns without a host read.
 
+:func:`cg_loop` takes the JAX signature's ``precond_apply, precond_state``
+pair; :func:`precond_apply_or_identity` with the state ``()`` is the
+identity, and with a :func:`spectral_precond_state` it is the stable
+low-rank :class:`SpectralPreconditioner` apply (the matrix-free solver's
+pivoted-Cholesky preconditioner).
+
 Not in this slice, each raising ``NotImplementedError``: other
 ``matvec_impl`` values (``"xla_high"``, ``"xla_bf16"``, ``"bf16_ir"``,
-``"bf16_ru"``), compensated dots, preconditioners other than the identity,
+``"bf16_ru"``), compensated dots, preconditioners of the dense solver,
 gradients through the solve (the custom backward pass) and chunked solves.
 """
 
@@ -51,7 +57,7 @@ def _standard_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class EyePreconditioner:
     """Identity: ``z = r``, ``rz = ||r||^2`` — the only preconditioner of
-    this slice, applied inline by :func:`cg_loop`."""
+    the dense solver in this slice (state ``()``)."""
 
     state: tuple = ()
 
@@ -60,6 +66,71 @@ class EyePreconditioner:
             raise NotImplementedError(
                 f"dot={dot!r}: compensated inner products arrive with a later "
                 "slice of the port (the CG solver family)")
+
+
+class SpectralPreconditioner:
+    """Cancellation-free low-rank+diagonal preconditioner: the exact
+    inverse of ``U U^T + diag(lam)`` in a form that stays SPD in fp32.
+
+    Construction diagonalizes the whitened factor ``W = D^{-1/2} U``:
+    QR first (``Q`` orthonormal to machine precision however ill-conditioned
+    ``W`` is), then ``eigh`` of ``R R^T`` under a relative ridge, giving
+
+        (U U^T + D)^{-1} = D^{-1/2} [ (I - Q Q^T) + Q diag(1/(1+s2)) Q^T ] D^{-1/2}
+
+    The apply re-orthogonalizes the projection once (twice is enough) and
+    accumulates ``r^T z`` as ``||y_perp||^2 + sum(w t^2)``, positive by
+    construction.  Cost per apply: four skinny [m, n] x [n, k] matmuls."""
+
+    def __init__(self, factor: torch.Tensor, lam: torch.Tensor):
+        lam = lam.reshape(-1).to(factor.dtype)
+        d_inv_sqrt = torch.rsqrt(lam)
+        w_fac = factor * d_inv_sqrt[:, None]  # D^{-1/2} U, [n, k]
+        q, r_fac = torch.linalg.qr(w_fac)
+        small = torch.matmul(r_fac, r_fac.T)  # [k, k] = Q^T W W^T Q
+        k = small.shape[-1]
+        eps = torch.finfo(factor.dtype).eps
+        ridge = 10.0 * eps * torch.clamp(torch.trace(small) / k, min=1.0)
+        eye = torch.eye(k, dtype=factor.dtype, device=factor.device)
+        s2, v = torch.linalg.eigh(small + ridge * eye)
+        s2 = torch.clamp(s2 - ridge, min=0.0)
+        q = torch.matmul(q, v)  # still orthonormal (V orthogonal)
+        weights = 1.0 / (1.0 + s2)
+        self.state = (q, weights, d_inv_sqrt)
+
+    @staticmethod
+    def apply(state, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        del mat
+        q, weights, d_inv_sqrt = state
+        y = vec * d_inv_sqrt[None, :]  # [m, n]
+        t = torch.matmul(y, q)  # [m, k]
+        y_perp = y - torch.matmul(t, q.T)
+        # Re-orthogonalize: after this, Q^T y_perp ~ 0 to working precision
+        # even when y lies almost entirely inside span(Q).
+        t2 = torch.matmul(y_perp, q)
+        y_perp = y_perp - torch.matmul(t2, q.T)
+        wt = t * weights[None, :]
+        z = (y_perp + torch.matmul(wt, q.T)) * d_inv_sqrt[None, :]
+        rz = torch.sum(torch.square(y_perp), dim=-1, keepdim=True) + torch.sum(
+            wt * t, dim=-1, keepdim=True)
+        return z, rz
+
+    def __call__(self, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.apply(self.state, vec, mat)
+
+
+def spectral_precond_state(factor: torch.Tensor, lam: torch.Tensor):
+    """The :class:`SpectralPreconditioner` state ``(q, weights, d_inv_sqrt)``."""
+    return SpectralPreconditioner(factor, lam).state
+
+
+def precond_apply_or_identity(state, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor,
+                                                                            torch.Tensor]:
+    """Identity when ``state`` is the empty tuple, else the
+    :class:`SpectralPreconditioner` apply; returns ``(z, r.z)``."""
+    if state == ():
+        return vec, torch.sum(torch.square(vec), dim=-1, keepdim=True)
+    return SpectralPreconditioner.apply(state, vec, mat)
 
 
 def _check_supported(matvec_impl: str, dot: str, preconditioner) -> None:
@@ -81,6 +152,8 @@ def _check_supported(matvec_impl: str, dot: str, preconditioner) -> None:
 
 def cg_loop(
     matvec: Callable[[torch.Tensor], torch.Tensor],
+    precond_apply: Callable,
+    precond_state,
     b: torch.Tensor,
     v0: torch.Tensor,
     *,
@@ -89,8 +162,9 @@ def cg_loop(
     max_steps_cycle: int,
     relative_threshold: bool = False,
 ) -> Tuple[torch.Tensor, CGStats]:
-    """Run CG on ``v A = b`` (row convention); ``matvec(p)`` returns ``p @ A``.
-    The preconditioner is the identity (``z = r``)."""
+    """Run PCG on ``v A = b`` (row convention); ``matvec(p)`` returns ``p @ A``
+    and ``precond_apply(precond_state, r, None)`` returns ``(z, r.z)``.
+    The stop rule reads the unpreconditioned residual ``r``."""
     dtype, device = v0.dtype, v0.device
     zero = torch.zeros((), dtype=dtype, device=device)
     threshold = torch.tensor(error_threshold, dtype=dtype, device=device)
@@ -103,8 +177,8 @@ def cg_loop(
 
     v = v0
     r = b - matvec(v0)
-    rz = _standard_dot(r, r)
-    p = r
+    z, rz = precond_apply(precond_state, r, None)
+    p = z
     i = 0
     while i < max_iterations and over_threshold(r):
         pa = matvec(p)
@@ -114,11 +188,11 @@ def cg_loop(
         v = v + gamma * p
         reset = not never_restart and i % max_steps_cycle == max_steps_cycle - 1
         r = b - matvec(v) if reset else r - gamma * pa
-        new_rz = _standard_dot(r, r)
+        z, new_rz = precond_apply(precond_state, r, None)
         if reset:
-            p = r
+            p = z
         else:
-            p = r + torch.where(indefinite | (rz <= _MIN_FLOAT), zero, p * new_rz / rz)
+            p = z + torch.where(indefinite | (rz <= _MIN_FLOAT), zero, p * new_rz / rz)
         rz = new_rz
         i += 1
     final_r_sq = torch.sum(torch.square(r), dim=-1, keepdim=True)
@@ -162,7 +236,8 @@ def _cg_dense_impl(error_threshold: float, max_iterations: int, max_steps_cycle:
         def matvec(q):
             return torch.matmul(q, matrix)
 
-    return cg_loop(matvec, rhs, v0, error_threshold=error_threshold,
+    return cg_loop(matvec, precond_apply_or_identity, (), rhs, v0,
+                   error_threshold=error_threshold,
                    max_iterations=max_iterations, max_steps_cycle=max_steps_cycle,
                    relative_threshold=relative)
 

@@ -6,6 +6,8 @@ model's ``posterior_predict`` and the results are concatenated on the
 device.  The loop itself reads nothing back to the host, so batches queue
 back to back on the card; whether a batch's CG reads its stop rule on the
 host is the solver route's business (``"pallas_resident"`` does not).
+``posterior_solver="auto"`` is resolved through the model's
+``resolve_serving_solver`` where it has one (the row-solver models).
 
 Not in this slice, each raising ``NotImplementedError``: ``batch_size=
 "auto"``, the one-dispatch scan route, mesh serving, chunked CG serving,
@@ -60,10 +62,17 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
     if pad:
         x = torch.cat([x, x[:1].expand(pad, x.shape[-1])], dim=0)
 
+    if posterior is None and posterior_solver == "auto":
+        # Resolved eagerly through the model's own rule where it has one
+        # (the row-solver models: "cg" when serving matrix-free); the dense
+        # CGGP has none yet, and its posterior() refuses "auto".
+        resolver = getattr(model, "resolve_serving_solver", None)
+        if resolver is not None:
+            posterior_solver = resolver(params)
     post = model.posterior(params, solver=posterior_solver) if posterior is None else posterior
     if post.chol is not None and not bool(torch.all(torch.isfinite(torch.diagonal(post.chol)))):
         # One host check per cache build, never per batch.  Every chol cache
-        # of this slice is an explicit request ("auto" is not ported).
+        # of this slice is an explicit request (no resolver picks "chol").
         raise FloatingPointError(
             "posterior(solver='chol'): non-finite Cholesky factor — Kmm+Lambda "
             "is too ill-conditioned for a raw factorization; use "

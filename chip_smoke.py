@@ -19,6 +19,21 @@ Phases, each printing one JSON line of its own:
               4 x 8192 query points) through each kernel, with the launch
               counts set to 0 just before and read just after, and results
               held against the Cholesky posterior and the ``"xla"`` route.
+7. ``setup_implicit``  the matrix-free workload: the committed cover-tree
+              selection at resolution 0.15 (M = 9576, padded to 10240 with
+              ``block=2048``), ``ImplicitCGGP`` with pivoted-Cholesky
+              preconditioning (rank 128) at relative threshold 1e-5.
+8. ``B3``     ``kuu_matvec`` against its plain version at M = 10240 (real
+              pads and mask) for R = 1 and 8192, ``gram_matvec`` at N = 8192,
+              M = 10240, R = 1, and a ragged case for each kernel family.
+9. ``reference_implicit``  the fp64 Cholesky posterior over the real points.
+10. ``serve_implicit_pallas`` / ``serve_implicit_xla``  the matrix-free
+              serving path (``posterior(solver="cg")`` + ``predict_in_batches``,
+              2 x 8192 query points) through B3 and through the plain blocked
+              route, with the B3 launch counts set to 0 just before and read
+              just after: every CG matvec must have gone through B3.
+11. ``check_implicit_tight_{pallas,xla}``  one 8192-row batch per route at relative
+              threshold 1e-9, held tightly against the fp64 posterior.
 
 Then one ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Every phase runs under a deadline: device
@@ -61,6 +76,27 @@ SERVE_ATOL = 5e-4
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 FP32_PEAK_FLOPS = 67e12  # fp32 FMA outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+SFU_OPS_PER_CLOCK = 16 * 132  # special-function results (exp, sqrt) per clock, 132 SMs
+
+# The matrix-free workload: the cover-tree selection of the same data at
+# resolution 0.15 and the production configuration of the matrix-free model
+# (configs/uci-cdgp-implicit.toml: pivoted Cholesky at rank 128, relative
+# per-row thresholds), Matern32 at init parameters.
+IMPLICIT_SELECTION = "cggp_tpu_torch/assets/selection_covertree_r015.npz"
+IMPLICIT_M = 9576
+IMPLICIT_BLOCK = 2048
+IMPLICIT_M_PAD = 10240
+IMPLICIT_BATCHES = 2
+IMPLICIT_MAX_CG = 1000  # the pseudo-u solve needs ~160 steps; the default 100 stops short
+IMPLICIT_THRESHOLD = 1e-5  # relative; the CLI's default
+IMPLICIT_TIGHT_THRESHOLD = 1e-9
+# Gates against the fp64 Cholesky posterior.  The JAX package's own fp32
+# route, on the CPU at this configuration (first 32 test points), deviated
+# from it by 3.5e-3 (mean) and 1.0e-3 (variance) at relative 1e-5 and by
+# 1.0e-4 and 4.3e-6 at 1e-9.  The loose gate is 3x the former; the tight
+# gate is 5e-4 and 5e-5, 5x and 12x the latter.
+IMPLICIT_ATOL = {"mean": 3 * 3.5e-3, "var": 3 * 1.0e-3}
+IMPLICIT_TIGHT_ATOL = {"mean": 5e-4, "var": 5e-5}
 
 _T0 = time.monotonic()
 
@@ -132,6 +168,36 @@ def bound_ms(nbytes: float, flops: float):
     return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
 
 
+def gram_bound_ms(n: int, m: int, d: int, r: int, kernel_name: str, sm_clock_hz: float,
+                  nbytes: float):
+    """The least time for ``K(x, z) @ v`` at [N, D], [M, D], [M, R]: the
+    largest of the fp32 FMA time of 2 N M (R + D) operations, the
+    special-function time of its N M exp (plus N M sqrt for Matern) at 16
+    per clock per SM, and the byte time."""
+    fma_ms = 2.0 * n * m * (r + d) / FP32_PEAK_FLOPS * 1e3
+    transcendentals = n * m * (1 if kernel_name == "se" else 2)
+    sfu_ms = transcendentals / (SFU_OPS_PER_CLOCK * sm_clock_hz) * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    limits = {"fp32 FMA": fma_ms, "special functions": sfu_ms, "bytes": byte_ms}
+    what = max(limits, key=limits.get)
+    return limits[what], ("bytes" if what == "bytes" else "operations"), what, limits
+
+
+def record_solves(model):
+    """Wrap a row model's ``_solve`` so every solve's CGStats is kept, for
+    reading after the timed window (the model itself discards them)."""
+    stats = []
+    solve = model._solve
+
+    def recording(*args, **kwargs):
+        solution, st = solve(*args, **kwargs)
+        stats.append(st)
+        return solution, st
+
+    object.__setattr__(model, "_solve", recording)
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -146,9 +212,15 @@ def main() -> int:
     from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve, pallas_cg_solve_plain
     from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec, pallas_matvec_plain
     from cggp_tpu_torch.training.optimize import predict_in_batches
+    from cggp_tpu_torch.models.clustergp import ClusterGP
+    from cggp_tpu_torch.models.implicit import ImplicitCGGP
+    from cggp_tpu_torch.ops.pallas_gram import (gram_matvec, gram_matvec_plain, kuu_matvec,
+                                                kuu_matvec_plain)
 
     selection_path = ROOT / "benchmarks" / "e2e_selection_covertree.npz"
     require(selection_path.is_file(), f"missing {selection_path}")
+    implicit_selection_path = ROOT / IMPLICIT_SELECTION
+    require(implicit_selection_path.is_file(), f"missing {implicit_selection_path}")
 
     # -- env ---------------------------------------------------------------
     with Phase("env", 60) as ph:
@@ -157,6 +229,10 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=30, check=True).stdout.strip()
         card_line = smi.splitlines()[torch.cuda.current_device()]
+        sm_clock_mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30,
+            check=True).stdout.splitlines()[torch.cuda.current_device()])
         require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul is on")
         require(torch.get_float32_matmul_precision() == "highest", "fp32 matmul not highest")
         emit({"phase": "env", "nvidia_smi": card_line, "device": torch.cuda.get_device_name(0),
@@ -164,7 +240,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "python": sys.version.split()[0],
               "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
               "float32_matmul_precision": torch.get_float32_matmul_precision(),
-              "wall_s": ph.elapsed()})
+              "max_sm_clock_mhz": sm_clock_mhz, "wall_s": ph.elapsed()})
 
     # -- build -------------------------------------------------------------
     with Phase("build", 400) as ph:
@@ -367,17 +443,201 @@ def main() -> int:
                     for i in (0, 1))
     require(route_gap <= SERVE_ATOL, f"the two kernel routes differ by {route_gap}")
 
+    # -- setup_implicit: the matrix-free workload ------------------------------
+    with Phase("setup_implicit", 120) as ph:
+        meta = {"n": 435_000, "dim": 3, "seed": 0, "res": 0.15}
+        with np.load(implicit_selection_path) as sel:
+            require(all(float(sel[k]) == v for k, v in meta.items()),
+                    f"implicit selection metadata differs from {meta}")
+            iv, u, counts = sel["iv"], sel["u"], sel["counts"]
+        require(iv.shape == (IMPLICIT_M, 3), f"implicit inducing set shape {iv.shape}")
+
+        def make_implicit(use_pallas, threshold=IMPLICIT_THRESHOLD):
+            return ImplicitCGGP(kernel=Matern32(), num_data=n_train, block=IMPLICIT_BLOCK,
+                                precondition="pivchol", precond_rank=128,
+                                relative_threshold=True, error_threshold=threshold,
+                                max_cg_iterations=IMPLICIT_MAX_CG, use_pallas=use_pallas)
+
+        iparams = make_implicit(True).init_params(iv, pseudo_u=u, cluster_counts=counts,
+                                                  dtype=torch.float32, device=device)
+        imask = iparams["inducing_mask"][:, 0]
+        num_pads = int((imask == 0).sum())
+        m_pad = iparams["inducing_points"].shape[0]
+        require(m_pad == IMPLICIT_M_PAD and num_pads == IMPLICIT_M_PAD - IMPLICIT_M,
+                f"padded M {m_pad} with {num_pads} pads")
+        ixq = xq[:IMPLICIT_BATCHES * R_BATCH]
+        ikp = iparams["kernel"]
+        iz_scaled = (iparams["inducing_points"] / Matern32().lengthscales(ikp)).contiguous()
+        ilam = make_implicit(True).diag_variance(iparams)[:, 0].contiguous()
+        ivar = Matern32().variance(ikp).reshape(1).contiguous()
+        emit({"phase": "setup_implicit", "m": IMPLICIT_M, "m_pad": m_pad, "pads": num_pads,
+              "block": IMPLICIT_BLOCK, "query_points": int(ixq.shape[0]),
+              "wall_s": ph.elapsed()})
+
+    # -- B3: gram_matvec / kuu_matvec ------------------------------------------
+    with Phase("B3", 180) as ph:
+        gen = torch.Generator(device=device).manual_seed(1)
+        cases = []
+
+        def b3_case(label, fn, plain, plain_abs, shape, kernel_name, nbytes, reps):
+            got = fn()
+            want = plain()
+            ph.wait()
+            require(bool(torch.isfinite(got).all()), f"B3 {label}: non-finite output")
+            err = float((got - want).abs().max())
+            # Both are fp32 sums of M nonnegative kernel values times B in
+            # other orders: the gap is a few ulps of sum |B| K (random-walk
+            # estimate sqrt(M) eps = 1.2e-5 of it at M = 10240).
+            scale = float(plain_abs().max())
+            tol = 5e-5 * scale
+            require(err <= tol, f"B3 {label}: max abs err {err} > {tol}")
+            kernel_ms = event_ms(ph, fn, reps=reps)
+            plain_ms = event_ms(ph, plain, reps=reps)
+            n, m, d, r = shape
+            bound, bound_by, bound_what, limits = gram_bound_ms(
+                n, m, d, r, kernel_name, sm_clock_mhz * 1e6, nbytes)
+            case = {"case": label, "kernel": kernel_name, "n": n, "m": m, "d": d, "r": r,
+                    "max_abs_err": err, "max_rel_err": err / scale,
+                    "tolerance": f"max_abs_err <= 5e-5 * max(|B| K) = {tol:.3g}",
+                    "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "bound_detail": bound_what, "bound_parts_ms": limits,
+                    "library_ms": None}
+            cases.append(case)
+            return case
+
+        m = IMPLICIT_M_PAD
+        for rows in (1, R_BATCH):
+            # The path's operand: p * mask (pad columns zero), pads in place.
+            p = (torch.randn(rows, m, generator=gen, device=device) * imask).contiguous()
+            p_abs = p.abs()
+            b3_case(f"kuu_matvec R={rows}",
+                    lambda: kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
+                    lambda: kuu_matvec_plain(iz_scaled, ilam, p, ivar, "matern32"),
+                    lambda: kuu_matvec_plain(iz_scaled, ilam, p_abs, ivar, "matern32"),
+                    (m, m, 3, rows), "matern32", 4.0 * (m * 3 + m + 1 + 2 * rows * m),
+                    reps=3 if rows > 1 else 20)
+        xg = xq[:R_BATCH].contiguous()
+        v = (torch.randn(m, 1, generator=gen, device=device) * imask[:, None]).contiguous()
+        v_abs = v.abs()
+        b3_case("gram_matvec R=1", lambda: gram_matvec(xg, iz_scaled, v, ivar, "matern32"),
+                lambda: gram_matvec_plain(xg, iz_scaled, v, ivar, "matern32"),
+                lambda: gram_matvec_plain(xg, iz_scaled, v_abs, ivar, "matern32"),
+                (R_BATCH, m, 3, 1), "matern32", 4.0 * ((R_BATCH + m) * 3 + m + 1 + R_BATCH),
+                reps=20)
+        for kernel_name in ("se", "matern12", "matern32", "matern52"):
+            xr = (torch.rand(1000, 3, generator=gen, device=device) * 4 - 2).contiguous()
+            zr = (torch.rand(777, 3, generator=gen, device=device) * 4 - 2).contiguous()
+            vr = torch.randn(777, 5, generator=gen, device=device)
+            vr_abs = vr.abs()
+            b3_case(f"gram_matvec ragged {kernel_name}",
+                    lambda: gram_matvec(xr, zr, vr, 1.3, kernel_name),
+                    lambda: gram_matvec_plain(xr, zr, vr, 1.3, kernel_name),
+                    lambda: gram_matvec_plain(xr, zr, vr_abs, 1.3, kernel_name),
+                    (1000, 777, 3, 5), kernel_name, 4.0 * (1777 * 3 + 777 * 5 + 1 + 5000),
+                    reps=10)
+        emit({"phase": "B3", "cases": cases, "library_ms": None,
+              "library_note": "no single PyTorch call builds and contracts the Gram matrix",
+              "peak": "fp32 FMA 67 TFLOP/s, 16 special-function results/clock/SM x 132 SMs "
+                      "at the max SM clock, HBM 3.35 TB/s (H100 SXM)",
+              "wall_s": ph.elapsed()})
+        big = cases[1]
+        kernels["gram_matvec"] = {
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "library_ms": None}
+
+    # -- reference_implicit: the fp64 Cholesky posterior ----------------------
+    with Phase("reference_implicit", 180) as ph:
+        oracle = ClusterGP(kernel=Matern32(), num_data=n_train)
+        oparams = oracle.init_params(iv, pseudo_u=u, cluster_counts=counts,
+                                     dtype=torch.float64, device=device)
+        ref_mean, ref_var = oracle.predict_f(oparams, ixq.double())
+        ph.wait()
+        require(bool(torch.isfinite(ref_mean).all() and torch.isfinite(ref_var).all()),
+                "the fp64 Cholesky posterior is not finite")
+        emit({"phase": "reference_implicit", "points": int(ixq.shape[0]),
+              "mean_abs_max": float(ref_mean.abs().max()), "var_min": float(ref_var.min()),
+              "var_max": float(ref_var.max()), "wall_s": ph.elapsed()})
+
+    def serve_implicit(name, use_pallas, threshold, xs, atol, budget_s):
+        with Phase(name, budget_s) as ph:
+            model = make_implicit(use_pallas, threshold)
+            solves = record_solves(model)
+            gram_matvec.launches = 0
+            kuu_matvec.launches = 0
+            t0 = time.monotonic()
+            post = model.posterior(iparams, solver="cg")
+            ph.wait()
+            t1 = time.monotonic()
+            mean, var = predict_in_batches(model, iparams, xs, batch_size=R_BATCH,
+                                           posterior_solver="cg", posterior=post)
+            ph.wait()
+            t2 = time.monotonic()
+            launches = {"kuu_matvec": kuu_matvec.launches, "gram_matvec": gram_matvec.launches}
+            steps = [int(st.steps) for st in solves]
+            converged = [bool(st.converged) for st in solves]
+            require(len(steps) == 1 + xs.shape[0] // R_BATCH, f"{name}: {len(steps)} solves")
+            want = {"kuu_matvec": sum(k + 1 for k in steps) if use_pallas else 0,
+                    "gram_matvec": 0}
+            require(launches == want, f"{name}: launches {launches}, want {want} "
+                                      f"(steps + 1 over the solves {steps})")
+            require(all(converged), f"{name}: a solve did not converge: steps {steps}")
+            require(mean.shape == (xs.shape[0], 1) and var.shape == (xs.shape[0], 1),
+                    f"{name}: output shapes {tuple(mean.shape)} {tuple(var.shape)}")
+            require(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+                    f"{name}: non-finite serving output")
+            require(bool((var >= 0).all()), f"{name}: negative predictive variance")
+            rows = xs.shape[0]
+            gaps = {"mean": float((mean.double() - ref_mean[:rows]).abs().max()),
+                    "var": float((var.double() - ref_var[:rows]).abs().max())}
+            require(all(gaps[k] <= atol[k] for k in gaps),
+                    f"{name}: gaps to the fp64 Cholesky posterior {gaps} beyond {atol}")
+            serve_s = t2 - t1
+            record = {"phase": name, "use_pallas": use_pallas,
+                      "relative_threshold": threshold, "launches": launches,
+                      "solves": len(steps), "points": rows, "batch_size": R_BATCH,
+                      "posterior_build_s": t1 - t0, "serve_s": serve_s,
+                      "points_per_s": rows / serve_s, "cg_steps_nu": steps[0],
+                      "cg_steps_per_batch": steps[1:],
+                      "ms_per_cg_step_serving": serve_s * 1e3 / sum(steps[1:]),
+                      "mean_vs_fp64_chol": gaps["mean"], "var_vs_fp64_chol": gaps["var"],
+                      "tolerance": atol, "var_min": float(var.min()),
+                      "nvidia_smi": card_line, "wall_s": ph.elapsed()}
+            emit(record)
+            return record
+
+    # Not warmed up: B3 and the blocked route's matmuls ran in earlier phases.
+    implicit = {}
+    for route, use_pallas in (("pallas", True), ("xla", False)):
+        implicit[route] = serve_implicit(f"serve_implicit_{route}", use_pallas,
+                                         IMPLICIT_THRESHOLD, ixq, IMPLICIT_ATOL, 150)
+    kernels["gram_matvec"]["launches"] = sum(implicit["pallas"]["launches"].values())
+    tight = {route: serve_implicit(f"check_implicit_tight_{route}", use_pallas,
+                                   IMPLICIT_TIGHT_THRESHOLD, ixq[:R_BATCH], IMPLICIT_TIGHT_ATOL,
+                                   120)
+             for route, use_pallas in (("pallas", True), ("xla", False))}
+    # Both routes solve the same systems: the kernel route's step counts stay
+    # within 5 % (or 3 steps) of the plain route's.
+    for runs in (implicit, tight):
+        for key in ("cg_steps_nu", "cg_steps_per_batch"):
+            a = np.atleast_1d(runs["pallas"][key])
+            b = np.atleast_1d(runs["xla"][key])
+            require(bool(np.all(np.abs(a - b) <= np.maximum(3, 0.05 * b))),
+                    f"kernel route steps {a.tolist()} vs plain {b.tolist()} ({key})")
+
     sources = {"pallas_matvec": ("cggp_tpu_torch/csrc/pallas_matvec.cu",
                                  "cggp_tpu/ops/pallas_matvec.py:65"),
                "pallas_cg_solve": ("cggp_tpu_torch/csrc/pallas_cg.cu",
-                                   "cggp_tpu/ops/pallas_cg.py:107")}
+                                   "cggp_tpu/ops/pallas_cg.py:107"),
+               "gram_matvec": ("cggp_tpu_torch/csrc/pallas_gram.cu",
+                               "cggp_tpu/ops/pallas_gram.py:118")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
          "launches": kernels[name]["launches"], "max_abs_err": kernels[name]["max_abs_err"],
          "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
          "bound_ms": kernels[name]["bound_ms"], "bound_by": kernels[name]["bound_by"],
          "library_ms": kernels[name]["library_ms"]}
-        for name in ("pallas_matvec", "pallas_cg_solve")]})
+        for name in ("pallas_matvec", "pallas_cg_solve", "gram_matvec")]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
