@@ -116,8 +116,10 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.cggp_pallas_matvec.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+            lib.cggp_pallas_matvec.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr]
             lib.cggp_pallas_matvec.restype = i32
+            lib.cggp_pallas_matvec_scratch_words.argtypes = [i32, i32]
+            lib.cggp_pallas_matvec_scratch_words.restype = ctypes.c_longlong
             lib.cggp_cg_grid.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
             lib.cggp_cg_grid.restype = i32
             lib.cggp_pallas_cg_solve.argtypes = [ptr] * 9 + [i32, i32, f32, i32, i32, ptr]

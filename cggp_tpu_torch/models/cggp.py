@@ -67,11 +67,13 @@ class CGGP(ClusterGP):
             fvar = (knn - torch.sum(kmn * inv_kmn, dim=0))[:, None]
         return kmn.T @ inv_u, fvar
 
-    def posterior(self, params: Dict, solver: str = "auto") -> "CGGPPosterior":
+    def posterior(self, params: Dict, key=None, solver: str = "auto") -> "CGGPPosterior":
         """Everything that depends only on ``params``: ``nu = (Kmm +
         Lambda)^{-1} u`` and either the system matrix (``solver="cg"``: each
         batch solves its ``Kmn`` block by CG) or its Cholesky factor
-        (``solver="chol"``: two triangular solves per batch).
+        (``solver="chol"``: two triangular solves per batch).  ``key`` is the
+        JAX signature's PRNG key, read only by preconditioners this slice
+        does not have (``precondition=None``); it is accepted and unused.
 
         A failed factorization leaves a NaN factor, as ``jnp.linalg.cholesky``
         does, so the serving guard in ``predict_in_batches`` can report it."""
@@ -84,16 +86,17 @@ class CGGP(ClusterGP):
         kp = params["kernel"]
         z = params["inducing_points"]
         u = params["pseudo_u"]
-        kmm_lambda = add_diagonal(self.kernel.K(kp, z), self.diag_variance(params)[:, 0])
+        lam = self.diag_variance(params)[:, 0]
+        kmm_lambda = add_diagonal(self.kernel.K(kp, z), lam)
         if solver == "chol":
             chol, info = torch.linalg.cholesky_ex(kmm_lambda)
             chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
             nu = torch.cholesky_solve(u, chol)
             return CGGPPosterior(kernel_params=kp, inducing_points=z, kmm_lambda=None,
-                                 nu=nu, chol=chol)
+                                 nu=nu, precond_state=(), chol=chol, lam=lam)
         nu = self.conjugate_gradient(kmm_lambda, u)
         return CGGPPosterior(kernel_params=kp, inducing_points=z, kmm_lambda=kmm_lambda,
-                             nu=nu, chol=None)
+                             nu=nu, precond_state=(), chol=None, lam=lam)
 
     def posterior_mean(self, post: "CGGPPosterior", x_new: torch.Tensor) -> torch.Tensor:
         """CG-free serving mean: ``K(x, Z) @ nu``."""
@@ -120,10 +123,15 @@ class CGGP(ClusterGP):
 
 
 class CGGPPosterior(NamedTuple):
-    """Serving cache produced by :meth:`CGGP.posterior`."""
+    """Serving cache produced by :meth:`CGGP.posterior`, with the JAX
+    package's fields in its order."""
 
     kernel_params: Dict
     inducing_points: torch.Tensor
     kmm_lambda: Optional[torch.Tensor]  # [M, M] = Kmm + diag(Lambda); None on chol
     nu: torch.Tensor  # [M, 1] = (Kmm + Lambda)^{-1} pseudo_u
+    precond_state: Tuple  # () = identity, the only preconditioner of this slice
     chol: Optional[torch.Tensor] = None  # [M, M] lower Cholesky of Kmm + Lambda
+    lanczos_r: Optional[torch.Tensor] = None  # LOVE cache: always None (no "lanczos" solver)
+    inducing_mask: Optional[torch.Tensor] = None  # always None: no capacity padding
+    lam: Optional[torch.Tensor] = None  # [M] diagonal Lambda the cache was built with

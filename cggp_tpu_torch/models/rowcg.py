@@ -202,7 +202,8 @@ class RowSolveCGGP(ClusterGP):
 
 
 class RowCGGPPosterior(NamedTuple):
-    """Serving cache produced by :meth:`RowSolveCGGP.posterior`."""
+    """Serving cache produced by :meth:`RowSolveCGGP.posterior`, with the JAX
+    package's fields in its order."""
 
     kernel_params: Dict
     inducing_points: torch.Tensor  # [M_pad, D] (pads decoupled)
@@ -211,3 +212,4 @@ class RowCGGPPosterior(NamedTuple):
     nu: torch.Tensor  # [1, M_pad] row = ((Kmm + Lambda)^{-1} u)^T
     precond_state: Tuple  # () = identity, else SpectralPreconditioner state
     chol: Optional[torch.Tensor] = None  # always None: served matrix-free
+    lanczos_r: Optional[torch.Tensor] = None  # LOVE cache: always None (no "lanczos" solver)

@@ -11,6 +11,17 @@ callers cast outside), with at most :data:`MAX_DIM` features.  The variance
 is a one-element float32 tensor on the operands' device (or a Python
 number), read by the kernel on the device.  Each wrapper counts its own
 launches (``gram_matvec.launches``, ``kuu_matvec.launches``).
+
+Arithmetic.  The kernel builds every kernel value in IEEE fp32 (fp32 FMA
+distances, IEEE ``expf``/``sqrtf``).  Above 8 rows of ``B`` it contracts
+them in 3xTF32 on the tensor cores (TF32 halves ``hi + lo``, products
+``lo hi + hi lo + hi hi``, each 32-deep stage added to the running sum in
+IEEE fp32; ``csrc/mma_3xtf32.cuh``) and adds ``p * lam`` in plain fp32; up
+to 8 rows it contracts them with IEEE fp32 FMA.  The plain versions compute
+in IEEE fp32 (TF32 stays off).  :func:`gram_matvec_3xtf32_emulated` and
+:func:`kuu_matvec_3xtf32_emulated` repeat the 3xTF32 contraction in plain
+torch for the tests and the card's smoke run; the main path never calls
+them.
 """
 
 from __future__ import annotations
@@ -20,7 +31,7 @@ from typing import Optional, Union
 import torch
 
 from cggp_tpu_torch.ops.kernels import kernel_value_from_r2, scaled_squared_distance
-from cggp_tpu_torch.ops.pallas_matvec import check_device, check_operand
+from cggp_tpu_torch.ops.pallas_matvec import check_device, check_operand, matmul_3xtf32_emulated
 
 MAX_DIM = 32  # features per point the kernel takes (csrc/pallas_gram.cu kMaxDim)
 _KERNEL_IDS = {"se": 0, "matern12": 1, "matern32": 2, "matern52": 3}
@@ -41,6 +52,26 @@ def kuu_matvec_plain(z_scaled: torch.Tensor, lam: torch.Tensor, p_rows: torch.Te
     r2 = scaled_squared_distance(z_scaled, z_scaled)
     k = kernel_value_from_r2(kernel_name, r2, _variance_like(variance, p_rows))
     return torch.matmul(p_rows, k) + p_rows * lam.reshape(1, -1)
+
+
+def gram_matvec_3xtf32_emulated(x_scaled: torch.Tensor, z_scaled: torch.Tensor,
+                                v: torch.Tensor, variance: Variance,
+                                kernel_name: str = "se") -> torch.Tensor:
+    """The kernel's arithmetic above 8 columns of ``v``: ``K(x, z) @ v`` with
+    ``K`` built in fp32 and contracted in emulated 3xTF32 (the kernel reads
+    ``B = v^T`` against ``K(z, x)``)."""
+    r2 = scaled_squared_distance(z_scaled, x_scaled)
+    k = kernel_value_from_r2(kernel_name, r2, _variance_like(variance, v))
+    return matmul_3xtf32_emulated(v.T, k).T
+
+
+def kuu_matvec_3xtf32_emulated(z_scaled: torch.Tensor, lam: torch.Tensor, p_rows: torch.Tensor,
+                               variance: Variance, kernel_name: str = "se") -> torch.Tensor:
+    """The kernel's arithmetic above 8 rows: ``p @ K(Z, Z)`` in emulated
+    3xTF32, then ``+ p * lam`` in plain fp32."""
+    r2 = scaled_squared_distance(z_scaled, z_scaled)
+    k = kernel_value_from_r2(kernel_name, r2, _variance_like(variance, p_rows))
+    return matmul_3xtf32_emulated(p_rows, k) + p_rows * lam.reshape(1, -1)
 
 
 def _variance_like(variance: Variance, like: torch.Tensor) -> torch.Tensor:

@@ -7,11 +7,25 @@
 Operands must be contiguous float32 on one device: the caller casts (the
 JAX wrapper casts to float32 inside, the port's CG route does it outside).
 ``pallas_matvec.launches`` counts kernel launches.
+
+Arithmetic.  Above 8 rows the kernel computes in 3xTF32 on the tensor
+cores: each operand is split into TF32 halves ``hi + lo`` and each product
+taken as ``lo hi + hi lo + hi hi``, every 32-deep stage summed from zero on
+the tensor cores and added to the running sum in IEEE fp32, which keeps
+fp32-level error (``csrc/mma_3xtf32.cuh``).  Up to 8 rows it is an IEEE
+fp32 FMA GEMV.  The plain version computes in IEEE fp32 (TF32 stays off).
+:func:`matmul_3xtf32_emulated` repeats the 3xTF32 arithmetic in plain
+torch for the tests and the card's smoke run; the main path never calls it.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+# Depth of one stage of the 3xTF32 kernels: its products are summed from
+# zero on the tensor cores and the sum is added to the running fp32 sum.
+TF32_STAGE = 32
 
 
 def check_operand(name: str, t: torch.Tensor, shape) -> None:
@@ -44,6 +58,47 @@ def pallas_matvec_plain(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return torch.matmul(p, a)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 rounded to TF32's 10 mantissa bits,
+    to nearest with ties away from zero (add half of the 13 dropped bits'
+    range to the bit pattern, then clear them)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """``x = hi + lo`` to ~22 significant bits, both TF32 values."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
+
+
+def matmul_3xtf32_emulated(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [R, K] @ b [K, N]`` as the 3xTF32 kernels compute it, in plain
+    torch: the three TF32 products ``lo hi + hi lo + hi hi`` of each 32-deep
+    stage summed exactly (float64) and rounded to float32 once, then the
+    stages added in order in IEEE float32.  The tensor cores round a stage's
+    sum their own way (not to nearest); this models it as round to nearest."""
+    rows, depth = a.shape
+    cols = b.shape[1]
+    pad = (-depth) % TF32_STAGE
+    stages = (depth + pad) // TF32_STAGE
+    a_hi, a_lo = (F.pad(t, (0, pad)).double() for t in split_tf32(a))
+    b_hi, b_lo = (F.pad(t, (0, 0, 0, pad)).double().reshape(stages, TF32_STAGE, cols)
+                  for t in split_tf32(b))
+    out = torch.empty((rows, cols), dtype=torch.float32, device=a.device)
+    block = max(1, (1 << 24) // max(1, stages * cols))  # rows per pass: <= 128 MB of float64
+    for r0 in range(0, rows, block):
+        def by_stage(t):
+            return t[r0:r0 + block].reshape(-1, stages, TF32_STAGE).transpose(0, 1)
+        stage_sums = (torch.bmm(by_stage(a_lo), b_hi) + torch.bmm(by_stage(a_hi), b_lo)
+                      + torch.bmm(by_stage(a_hi), b_hi)).float()  # [stages, rows, cols]
+        acc = torch.zeros((min(block, rows - r0), cols), dtype=torch.float32, device=a.device)
+        for k in range(stages):
+            acc = acc + stage_sums[k]
+        out[r0:r0 + block] = acc
+    return out
+
+
 def pallas_matvec(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """``p @ A`` for symmetric ``A``: ``p [R, M]``, ``A [M, M]`` -> ``[R, M]``."""
     if not isinstance(p, torch.Tensor) or p.dim() != 2:
@@ -59,9 +114,16 @@ def pallas_matvec(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     from cggp_tpu_torch import _build
 
     lib = _build.load()
+    # Above 8 rows the kernel first splits A into its TF32 halves, tile by
+    # tile, in this scratch buffer (8 MB at M = 989).
+    scratch = None
+    if rows > 8:
+        words = lib.cggp_pallas_matvec_scratch_words(rows, m)
+        scratch = torch.empty((words,), dtype=torch.int32, device=p.device)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    _build.check(lib.cggp_pallas_matvec(p.data_ptr(), a.data_ptr(), out.data_ptr(),
-                                        rows, m, stream), "pallas_matvec")
+    _build.check(lib.cggp_pallas_matvec(p.data_ptr(), a.data_ptr(), out.data_ptr(), rows, m,
+                                        None if scratch is None else scratch.data_ptr(), stream),
+                 "pallas_matvec")
     pallas_matvec.launches += 1
     return out
 

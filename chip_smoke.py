@@ -12,7 +12,11 @@ Phases, each printing one JSON line of its own:
 2. ``build``  ``nvcc`` builds the kernels from ``cggp_tpu_torch/csrc``.
 3. ``setup``  the serving workload: ``synthetic(n=435_000, dim=3, seed=0)``
               and the committed cover-tree selection (M = 989).
-4. ``B1``     ``pallas_matvec`` against its plain version at R = 1 and 8192.
+4. ``B1``     ``pallas_matvec`` against its plain version and fp64 at R = 1 and
+              8192 (the kernel's error from fp64 at most 2x the plain
+              version's), timed in turns with the plain version and
+              ``torch.matmul`` (back-to-back calls; at R = 1 also replayed
+              from a CUDA graph, the host out of the way).
 5. ``B2``     ``pallas_cg_solve`` against its plain version at R = 1 and 8192.
 6. ``serve_pallas_resident`` / ``serve_pallas``  the port's serving path
               (``CGGP.posterior(solver="cg")`` + ``predict_in_batches``,
@@ -23,9 +27,12 @@ Phases, each printing one JSON line of its own:
               selection at resolution 0.15 (M = 9576, padded to 10240 with
               ``block=2048``), ``ImplicitCGGP`` with pivoted-Cholesky
               preconditioning (rank 128) at relative threshold 1e-5.
-8. ``B3``     ``kuu_matvec`` against its plain version at M = 10240 (real
-              pads and mask) for R = 1 and 8192, ``gram_matvec`` at N = 8192,
-              M = 10240, R = 1, and a ragged case for each kernel family.
+8. ``B3``     ``kuu_matvec`` against its plain version and fp64 at M = 10240
+              (real pads and mask) for R = 1 and 8192 (at 8192 the kernel's
+              error from fp64 at most 2x the plain version's), ``gram_matvec``
+              at N = 8192, M = 10240, R = 1, and ragged cases of each kernel
+              family on both launch shapes; timed in turns with the plain
+              version.
 9. ``reference_implicit``  the fp64 Cholesky posterior over the real points.
 10. ``serve_implicit_pallas`` / ``serve_implicit_xla``  the matrix-free
               serving path (``posterior(solver="cg")`` + ``predict_in_batches``,
@@ -34,6 +41,11 @@ Phases, each printing one JSON line of its own:
               just after: every CG matvec must have gone through B3.
 11. ``check_implicit_tight_{pallas,xla}``  one 8192-row batch per route at relative
               threshold 1e-9, held tightly against the fp64 posterior.
+
+Bounds (``bound_parts``): the least time of an fp32-accurate result, the
+smaller of the fp32 FMA time and three TF32 passes on the tensor cores, then
+the larger of that, the special functions and the bytes; ``simt_bound_ms``
+keeps the fp32-FMA-only bound of the first kernels.
 
 Then one ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Every phase runs under a deadline: device
@@ -50,6 +62,7 @@ import faulthandler
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -75,6 +88,7 @@ CG_THRESHOLD = 1e-8
 SERVE_ATOL = 5e-4
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 FP32_PEAK_FLOPS = 67e12  # fp32 FMA outside the tensor cores
+TF32_PEAK_FLOPS = 495e12  # dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 SFU_OPS_PER_CLOCK = 16 * 132  # special-function results (exp, sqrt) per clock, 132 SMs
 
@@ -162,25 +176,96 @@ def event_ms(phase: Phase, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = flops / FP32_PEAK_FLOPS * 1e3
-    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
-
-
-def gram_bound_ms(n: int, m: int, d: int, r: int, kernel_name: str, sm_clock_hz: float,
-                  nbytes: float):
-    """The least time for ``K(x, z) @ v`` at [N, D], [M, D], [M, R]: the
-    largest of the fp32 FMA time of 2 N M (R + D) operations, the
-    special-function time of its N M exp (plus N M sqrt for Matern) at 16
-    per clock per SM, and the byte time."""
-    fma_ms = 2.0 * n * m * (r + d) / FP32_PEAK_FLOPS * 1e3
-    transcendentals = n * m * (1 if kernel_name == "se" else 2)
-    sfu_ms = transcendentals / (SFU_OPS_PER_CLOCK * sm_clock_hz) * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    limits = {"fp32 FMA": fma_ms, "special functions": sfu_ms, "bytes": byte_ms}
+def bound_parts(nbytes: float, fma_flops: float, tc_flops: float = 0.0,
+                transcendentals: float = 0.0, sm_clock_hz: float = 0.0):
+    """The least time (ms) of an fp32-accurate result: the smaller of the
+    fp32 FMA time of all ``fma_flops`` and the 3xTF32 time (three TF32
+    passes over the product's ``tc_flops`` on the tensor cores, the rest in
+    fp32 FMA), then the larger of that, the special-function time (exp,
+    sqrt at 16 per clock per SM) and the byte time.  Returns the bound, what
+    bounds it ("bytes" or "operations"), the part that sets it, and every
+    part; "fp32 FMA" alone is the SIMT bound of the first kernels."""
+    parts = {"fp32 FMA": fma_flops / FP32_PEAK_FLOPS * 1e3,
+             "3xTF32 tensor cores": (3.0 * tc_flops / TF32_PEAK_FLOPS
+                                     + (fma_flops - tc_flops) / FP32_PEAK_FLOPS) * 1e3,
+             "special functions": (transcendentals / (SFU_OPS_PER_CLOCK * sm_clock_hz) * 1e3
+                                   if transcendentals else 0.0),
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    arithmetic = min(parts["fp32 FMA"], parts["3xTF32 tensor cores"])
+    limits = {"fp32 FMA" if arithmetic == parts["fp32 FMA"] else "3xTF32 tensor cores": arithmetic,
+              "special functions": parts["special functions"], "bytes": parts["bytes"]}
     what = max(limits, key=limits.get)
-    return limits[what], ("bytes" if what == "bytes" else "operations"), what, limits
+    return limits[what], ("bytes" if what == "bytes" else "operations"), what, parts
+
+
+def gram_bound(n: int, m: int, d: int, r: int, kernel_name: str, sm_clock_hz: float,
+               nbytes: float):
+    """bound_parts of ``K(x, z) @ v`` at [N, D], [M, D], [M, R]: the
+    contraction's 2 N M R flops (3xTF32 on the tensor cores above R = 8),
+    the distances' 2 N M D fp32 FMA, an exp (and for Matern a sqrt) per
+    kernel value."""
+    transcendentals = n * m * (1 if kernel_name == "se" else 2)
+    return bound_parts(nbytes, 2.0 * n * m * (r + d), 2.0 * n * m * r, transcendentals,
+                       sm_clock_hz)
+
+
+def timed_in_turns(phase: Phase, fns, order, reps: int):
+    """Device ms per call of each named function, timed in the given order
+    (plain, kernel, kernel, plain: drift between the two shows), from CUDA
+    events over back-to-back calls; returns {name: [ms, ...]}."""
+    out = {name: [] for name in fns}
+    for name in order:
+        out[name].append(event_ms(phase, fns[name], reps=reps))
+    return out
+
+
+def graph_ms(phase: Phase, fn, calls: int = 20, reps: int = 5) -> float:
+    """Device ms per call with the host out of the way: ``calls`` calls
+    captured in one CUDA graph, replayed ``reps`` times."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    phase.wait()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    phase.wait()
+    ms = start.elapsed_time(end) / (reps * calls)
+    del graph
+    return ms
+
+
+def ptxas_report(log: str):
+    """Registers, shared memory and spills of each kernel in the build log
+    (``nvcc -Xptxas -v``)."""
+    kernels, current = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = re.search(r"(\w+_kernel)(I\w*?E)?", entry.group(1))
+            current = {"kernel": name.group(0) if name else entry.group(1)}
+            kernels.append(current)
+        elif current is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                current["spill_stores"], current["spill_loads"] = map(int, spill.groups())
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                current["registers"] = int(used.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                current["static_smem"] = int(smem.group(1)) if smem else 0
+    return kernels
 
 
 def record_solves(model):
@@ -210,12 +295,14 @@ def main() -> int:
     from cggp_tpu_torch.ops.kernels import Matern32
     from cggp_tpu_torch.ops.linalg import add_diagonal
     from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve, pallas_cg_solve_plain
-    from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec, pallas_matvec_plain
+    from cggp_tpu_torch.ops.pallas_matvec import (matmul_3xtf32_emulated, pallas_matvec,
+                                                  pallas_matvec_plain)
     from cggp_tpu_torch.training.optimize import predict_in_batches
     from cggp_tpu_torch.models.clustergp import ClusterGP
     from cggp_tpu_torch.models.implicit import ImplicitCGGP
+    from cggp_tpu_torch.ops.kernels import kernel_value_from_r2, scaled_squared_distance
     from cggp_tpu_torch.ops.pallas_gram import (gram_matvec, gram_matvec_plain, kuu_matvec,
-                                                kuu_matvec_plain)
+                                                kuu_matvec_3xtf32_emulated, kuu_matvec_plain)
 
     selection_path = ROOT / "benchmarks" / "e2e_selection_covertree.npz"
     require(selection_path.is_file(), f"missing {selection_path}")
@@ -246,8 +333,8 @@ def main() -> int:
     with Phase("build", 400) as ph:
         lib_path = _build.build()
         _build.load()
-        ptxas = [line.strip() for line in _build.build_log().splitlines()
-                 if "registers" in line or "spill" in line]
+        ptxas = ptxas_report(_build.build_log())
+        require(len(ptxas) > 0, "no ptxas report in the build log")
         emit({"phase": "build", "library": str(lib_path.relative_to(ROOT)),
               "ptxas": ptxas, "wall_s": ph.elapsed()})
 
@@ -281,7 +368,7 @@ def main() -> int:
     kernels = {}
 
     # -- B1: pallas_matvec ---------------------------------------------------
-    with Phase("B1", 120) as ph:
+    with Phase("B1", 150) as ph:
         gen = torch.Generator(device=device).manual_seed(0)
         g = torch.randn(m, m, generator=gen, device=device)
         a = (g @ g.T) / m + torch.eye(m, device=device)  # symmetric positive definite
@@ -291,25 +378,54 @@ def main() -> int:
             got = pallas_matvec(p, a)
             want = pallas_matvec_plain(p, a)
             ph.wait()
+            exact = p.double() @ a.double()
             err = float((got - want).abs().max())
-            err_fp64 = float((got.double() - p.double() @ a.double()).abs().max())
-            # Both are fp32 sums of M products in other orders: the gap is a
-            # few ulps of sum |p||a| (worst case M * eps = 6e-5 of it).
+            err_fp64 = float((got.double() - exact).abs().max())
+            plain_err_fp64 = float((want.double() - exact).abs().max())
+            del exact
+            # Both are fp32-accurate sums of M products in other orders: the
+            # gap is a few ulps of sum |p||a| (worst case M * eps = 6e-5 of it).
             scale = float((p.abs() @ a.abs()).max())
             require(math.isfinite(err) and err <= 1e-5 * scale,
                     f"B1 R={rows}: max abs err {err} > 1e-5 * {scale}")
-            kernel_ms = event_ms(ph, lambda: pallas_matvec(p, a), reps=20)
-            plain_ms = event_ms(ph, lambda: pallas_matvec_plain(p, a), reps=20)
-            library_ms = event_ms(ph, lambda: torch.matmul(p, a), reps=20)
-            bound, bound_by = bound_ms(4.0 * (2 * rows * m + m * m), 2.0 * rows * m * m)
+            # The kernel (3xTF32 above R = 8) is no further from fp64 than
+            # twice the IEEE fp32 plain version.
+            require(err_fp64 <= 2.0 * plain_err_fp64,
+                    f"B1 R={rows}: {err_fp64} from fp64, plain fp32 {plain_err_fp64}")
+            emulation = {}
+            if rows > 8:
+                k = 256
+                emulated = matmul_3xtf32_emulated(p[:k], a)
+                emulation = {"max_abs_err_vs_3xtf32_emulation_first_256_rows":
+                             float((got[:k] - emulated).abs().max())}
+            times = timed_in_turns(ph, {"plain": lambda: pallas_matvec_plain(p, a),
+                                        "kernel": lambda: pallas_matvec(p, a),
+                                        "library": lambda: torch.matmul(p, a)},
+                                   ["plain", "kernel", "library", "kernel", "library", "plain"],
+                                   reps=20)
+            graph = {}
+            if rows == 1:  # launch-bound: host overhead hides the device time
+                graph = {name: graph_ms(ph, fn) for name, fn in (
+                    ("kernel", lambda: pallas_matvec(p, a)),
+                    ("library", lambda: torch.matmul(p, a)))}
+            bound, bound_by, bound_what, parts = bound_parts(
+                4.0 * (2 * rows * m + m * m), 2.0 * rows * m * m, 2.0 * rows * m * m)
             case = {"rows": rows, "m": m, "max_abs_err": err, "max_rel_err": err / scale,
-                    "max_abs_err_vs_fp64": err_fp64,
-                    "tolerance": f"max_abs_err <= 1e-5 * max(|p| @ |A|) = {1e-5 * scale:.3g}",
-                    "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                    "bound_ms": bound, "bound_by": bound_by,
-                    "peak": "fp32 FMA 67 TFLOP/s, HBM 3.35 TB/s (H100 SXM data sheet)"}
+                    "max_abs_err_vs_fp64": err_fp64, "plain_max_abs_err_vs_fp64": plain_err_fp64,
+                    **emulation,
+                    "tolerance": f"max_abs_err <= 1e-5 * max(|p| @ |A|) = {1e-5 * scale:.3g}; "
+                                 "vs fp64 <= 2x the plain version's",
+                    "kernel_ms": float(np.mean(times["kernel"])),
+                    "plain_ms": float(np.mean(times["plain"])),
+                    "library_ms": float(np.mean(times["library"])), "turns_ms": times,
+                    "graph_ms": graph or None,
+                    "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
+                    "bound_parts_ms": parts,
+                    "simt_bound_ms": max(parts["fp32 FMA"], parts["bytes"]),
+                    "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, HBM 3.35 TB/s "
+                            "(H100 SXM data sheet)"}
             cases.append(case)
-        emit({"phase": "B1", "cases": cases, "wall_s": ph.elapsed()})
+        emit({"phase": "B1", "cases": cases, "nvidia_smi": card_line, "wall_s": ph.elapsed()})
         big = cases[-1]
         kernels["pallas_matvec"] = {
             "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
@@ -347,18 +463,23 @@ def main() -> int:
             plain_ms = event_ms(ph, lambda: pallas_cg_solve_plain(kmm_lambda, rhs, CG_THRESHOLD,
                                                                   max_it), reps=2)
             # Bytes: A and b read once, v written once.  Operations: per step
-            # the [R, M] x [M, M] product plus ~11 R M for dots and updates.
-            bound, bound_by = bound_ms(4.0 * (m * m + 2 * rows * m),
-                                       steps * (2.0 * rows * m * m + 11.0 * rows * m))
+            # the [R, M] x [M, M] product (3xTF32-able) plus ~11 R M for dots
+            # and updates (fp32 FMA).
+            bound, bound_by, bound_what, parts = bound_parts(
+                4.0 * (m * m + 2 * rows * m), steps * (2.0 * rows * m * m + 11.0 * rows * m),
+                steps * 2.0 * rows * m * m)
             cases.append({"rhs": name, "rows": rows, "m": m, "steps": steps,
                           "steps_plain": steps_plain, "max_abs_err": err,
                           "max_abs_err_vs_fp64_solve": err_exact,
                           "plain_max_abs_err_vs_fp64_solve": err_exact_plain,
                           "tolerance": f"max_abs_err <= 2e-3 * max|v| = {tol:.3g}",
                           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                          "bound_ms": bound, "bound_by": bound_by,
+                          "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
+                          "bound_parts_ms": parts,
+                          "simt_bound_ms": max(parts["fp32 FMA"], parts["bytes"]),
                           "per_step_bound_ms": bound / steps if bound_by == "operations" else None,
-                          "peak": "fp32 FMA 67 TFLOP/s, HBM 3.35 TB/s (H100 SXM data sheet)"})
+                          "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, HBM 3.35 TB/s "
+                                  "(H100 SXM data sheet)"})
         emit({"phase": "B2", "cases": cases, "library_ms": None,
               "library_note": "no single PyTorch call computes a CG solve",
               "wall_s": ph.elapsed()})
@@ -475,47 +596,82 @@ def main() -> int:
               "wall_s": ph.elapsed()})
 
     # -- B3: gram_matvec / kuu_matvec ------------------------------------------
-    with Phase("B3", 180) as ph:
+    with Phase("B3", 240) as ph:
         gen = torch.Generator(device=device).manual_seed(1)
         cases = []
 
-        def b3_case(label, fn, plain, plain_abs, shape, kernel_name, nbytes, reps):
+        def b3_case(label, fn, plain, plain_abs, shape, kernel_name, nbytes, reps,
+                    exact=None, emulated=None, gate_fp64=False):
             got = fn()
             want = plain()
             ph.wait()
             require(bool(torch.isfinite(got).all()), f"B3 {label}: non-finite output")
             err = float((got - want).abs().max())
-            # Both are fp32 sums of M nonnegative kernel values times B in
-            # other orders: the gap is a few ulps of sum |B| K (random-walk
-            # estimate sqrt(M) eps = 1.2e-5 of it at M = 10240).
+            # Both are fp32-accurate sums of M nonnegative kernel values times
+            # B in other orders: the gap is a few ulps of sum |B| K
+            # (random-walk estimate sqrt(M) eps = 1.2e-5 of it at M = 10240).
             scale = float(plain_abs().max())
             tol = 5e-5 * scale
             require(err <= tol, f"B3 {label}: max abs err {err} > {tol}")
-            kernel_ms = event_ms(ph, fn, reps=reps)
-            plain_ms = event_ms(ph, plain, reps=reps)
+            accuracy = {}
+            if exact is not None:
+                reference = exact()
+                err_fp64 = float((got.double() - reference).abs().max())
+                plain_err_fp64 = float((want.double() - reference).abs().max())
+                del reference
+                accuracy = {"max_abs_err_vs_fp64": err_fp64,
+                            "plain_max_abs_err_vs_fp64": plain_err_fp64}
+                if gate_fp64:
+                    require(err_fp64 <= 2.0 * plain_err_fp64,
+                            f"B3 {label}: {err_fp64} from fp64, plain fp32 {plain_err_fp64}")
+            if emulated is not None:
+                rows_emulated, emulated_out = emulated()
+                accuracy["max_abs_err_vs_3xtf32_emulation"] = float(
+                    (got[:rows_emulated] - emulated_out).abs().max())
+            times = timed_in_turns(ph, {"plain": plain, "kernel": fn},
+                                   ["plain", "kernel", "kernel", "plain"], reps=reps)
             n, m, d, r = shape
-            bound, bound_by, bound_what, limits = gram_bound_ms(
+            graph = {"kernel": graph_ms(ph, fn)} if r == 1 else None
+            bound, bound_by, bound_what, parts = gram_bound(
                 n, m, d, r, kernel_name, sm_clock_mhz * 1e6, nbytes)
             case = {"case": label, "kernel": kernel_name, "n": n, "m": m, "d": d, "r": r,
-                    "max_abs_err": err, "max_rel_err": err / scale,
-                    "tolerance": f"max_abs_err <= 5e-5 * max(|B| K) = {tol:.3g}",
-                    "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": bound_by, "bound_detail": bound_what, "bound_parts_ms": limits,
+                    "max_abs_err": err, "max_rel_err": err / scale, **accuracy,
+                    "tolerance": f"max_abs_err <= 5e-5 * max(|B| K) = {tol:.3g}"
+                                 + ("; vs fp64 <= 2x the plain version's" if gate_fp64 else ""),
+                    "kernel_ms": float(np.mean(times["kernel"])),
+                    "plain_ms": float(np.mean(times["plain"])), "turns_ms": times,
+                    "graph_ms": graph, "bound_ms": bound, "bound_by": bound_by,
+                    "bound_detail": bound_what, "bound_parts_ms": parts,
+                    "simt_bound_ms": max(parts["fp32 FMA"], parts["special functions"],
+                                         parts["bytes"]),
                     "library_ms": None}
             cases.append(case)
             return case
 
         m = IMPLICIT_M_PAD
+        z64 = iz_scaled.double()
         for rows in (1, R_BATCH):
             # The path's operand: p * mask (pad columns zero), pads in place.
             p = (torch.randn(rows, m, generator=gen, device=device) * imask).contiguous()
             p_abs = p.abs()
+
+            def kuu_exact(p=p):
+                # The same function in fp64 from the same fp32 inputs.
+                k64 = kernel_value_from_r2("matern32", scaled_squared_distance(z64, z64),
+                                           ivar.double().reshape(()))
+                return p.double() @ k64 + p.double() * ilam.double()
+
+            def kuu_emulated(p=p):
+                return 256, kuu_matvec_3xtf32_emulated(iz_scaled, ilam, p[:256], ivar,
+                                                       "matern32")
+
             b3_case(f"kuu_matvec R={rows}",
                     lambda: kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
                     lambda: kuu_matvec_plain(iz_scaled, ilam, p, ivar, "matern32"),
                     lambda: kuu_matvec_plain(iz_scaled, ilam, p_abs, ivar, "matern32"),
                     (m, m, 3, rows), "matern32", 4.0 * (m * 3 + m + 1 + 2 * rows * m),
-                    reps=3 if rows > 1 else 20)
+                    reps=3 if rows > 1 else 20, exact=kuu_exact,
+                    emulated=kuu_emulated if rows > 8 else None, gate_fp64=rows > 8)
         xg = xq[:R_BATCH].contiguous()
         v = (torch.randn(m, 1, generator=gen, device=device) * imask[:, None]).contiguous()
         v_abs = v.abs()
@@ -524,22 +680,25 @@ def main() -> int:
                 lambda: gram_matvec_plain(xg, iz_scaled, v_abs, ivar, "matern32"),
                 (R_BATCH, m, 3, 1), "matern32", 4.0 * ((R_BATCH + m) * 3 + m + 1 + R_BATCH),
                 reps=20)
-        for kernel_name in ("se", "matern12", "matern32", "matern52"):
-            xr = (torch.rand(1000, 3, generator=gen, device=device) * 4 - 2).contiguous()
-            zr = (torch.rand(777, 3, generator=gen, device=device) * 4 - 2).contiguous()
-            vr = torch.randn(777, 5, generator=gen, device=device)
-            vr_abs = vr.abs()
-            b3_case(f"gram_matvec ragged {kernel_name}",
-                    lambda: gram_matvec(xr, zr, vr, 1.3, kernel_name),
-                    lambda: gram_matvec_plain(xr, zr, vr, 1.3, kernel_name),
-                    lambda: gram_matvec_plain(xr, zr, vr_abs, 1.3, kernel_name),
-                    (1000, 777, 3, 5), kernel_name, 4.0 * (1777 * 3 + 777 * 5 + 1 + 5000),
-                    reps=10)
+        # Ragged cases of every family: the small launch (R = 5) and the
+        # tiled one reading B transposed (R = 37 at D = 5, R = 130 at D = 32).
+        for n_r, m_r, d_r, r_r in ((1000, 777, 3, 5), (1000, 777, 5, 37), (333, 1001, 32, 130)):
+            for kernel_name in ("se", "matern12", "matern32", "matern52"):
+                xr = (torch.rand(n_r, d_r, generator=gen, device=device) * 4 - 2).contiguous()
+                zr = (torch.rand(m_r, d_r, generator=gen, device=device) * 4 - 2).contiguous()
+                vr = torch.randn(m_r, r_r, generator=gen, device=device)
+                vr_abs = vr.abs()
+                b3_case(f"gram_matvec ragged {kernel_name} R={r_r}",
+                        lambda: gram_matvec(xr, zr, vr, 1.3, kernel_name),
+                        lambda: gram_matvec_plain(xr, zr, vr, 1.3, kernel_name),
+                        lambda: gram_matvec_plain(xr, zr, vr_abs, 1.3, kernel_name),
+                        (n_r, m_r, d_r, r_r), kernel_name,
+                        4.0 * ((n_r + m_r) * d_r + m_r * r_r + 1 + n_r * r_r), reps=10)
         emit({"phase": "B3", "cases": cases, "library_ms": None,
               "library_note": "no single PyTorch call builds and contracts the Gram matrix",
-              "peak": "fp32 FMA 67 TFLOP/s, 16 special-function results/clock/SM x 132 SMs "
-                      "at the max SM clock, HBM 3.35 TB/s (H100 SXM)",
-              "wall_s": ph.elapsed()})
+              "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, 16 special-function "
+                      "results/clock/SM x 132 SMs at the max SM clock, HBM 3.35 TB/s (H100 SXM)",
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
         big = cases[1]
         kernels["gram_matvec"] = {
             "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
