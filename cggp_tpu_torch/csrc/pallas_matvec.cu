@@ -34,7 +34,9 @@
 // multiples of 16 bytes) cannot describe them.  Each p row of a stage is
 // copied as the nine aligned 16-byte chunks that cover it and read at its
 // skew (load_p_tile); p is never padded (a padding copy would move 32 MB
-// per call).  Rows, columns and depths past the edge read as zero.
+// per call).  The skew comes from the row's address, so p may start at any
+// 4-byte boundary (a view at an offset).  Rows, columns and depths past the
+// edge read as zero.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -90,22 +92,31 @@ __global__ void __launch_bounds__(kThreads)
 
 // The p tile of one stage: for each of its 128 rows, the nine 16-byte
 // aligned chunks that cover the row's 32 depths.  Rows of p are only 4-byte
-// aligned at odd M (16-byte copies, float4 loads and TMA descriptors cannot
-// describe them), so a row's data starts row_skew words into its raw row
-// (stage starts are multiples of 32 words, so the skew is (row M) mod 4);
-// chunks past the array's end are cut short (src-size) and zero-filled, and
-// depths past M are masked when read.
-__device__ __forceinline__ int row_skew(int row, int m) { return ((row & 3) * (m & 3)) & 3; }
+// aligned at odd M or when p is a view at an offset (16-byte copies, float4
+// loads and TMA descriptors cannot describe them), so a row's data starts
+// row_skew words into its raw row: its word address mod 4 (stage starts are
+// multiples of 32 words apart).  The first chunk of a row may begin up to
+// 12 bytes before it, inside the same aligned 16 bytes (never before the
+// allocation, which is 16-byte aligned); chunks past the array's end are
+// cut short (src-size) and zero-filled, and depths past M are masked when
+// read.
+__device__ __forceinline__ int row_skew(const float* p, int row, int m) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) / 4 + static_cast<size_t>(row) * m) & 3);
+}
 
 __device__ __forceinline__ void load_p_tile(const float* p, size_t p_words, int row0, int rows,
                                             int m, int k0, float* raw) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(p) / 4;  // word address of p
+  const uintptr_t end = base + p_words;
+  const float* aligned_p = reinterpret_cast<const float*>((base & ~uintptr_t{3}) * 4);
   for (int c = threadIdx.x; c < kBlock * kRawChunks; c += kThreads) {
     const int n = c / kRawChunks, j = c % kRawChunks;
-    const size_t start = static_cast<size_t>(row0 + n) * m + k0;
-    const size_t chunk = (start & ~size_t{3}) + 4 * j;
-    const size_t left = chunk < p_words ? p_words - chunk : 0;
+    const uintptr_t start = base + static_cast<size_t>(row0 + n) * m + k0;
+    const uintptr_t chunk = (start & ~uintptr_t{3}) + 4 * j;
+    const uintptr_t left = chunk < end ? end - chunk : 0;
     const int bytes = row0 + n >= rows ? 0 : (left >= 4 ? 16 : static_cast<int>(4 * left));
-    cp_async_16(raw + n * kRawStride + 4 * j, bytes ? p + chunk : p, bytes);
+    cp_async_16(raw + n * kRawStride + 4 * j,
+                bytes ? reinterpret_cast<const float*>(chunk * 4) : aligned_p, bytes);
   }
 }
 
@@ -140,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // A fragments come from the raw p rows, skewed and masked.
   const auto a_value = [&](int stage, int r, int k) {
     const int k0 = stage * kStageDepth;
-    return k0 + k < m ? raw_p(stage)[r * kRawStride + row_skew(row0 + r, m) + k] : 0.f;
+    return k0 + k < m ? raw_p(stage)[r * kRawStride + row_skew(p, row0 + r, m) + k] : 0.f;
   };
 
   float acc[64];

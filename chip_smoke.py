@@ -246,6 +246,31 @@ def graph_ms(phase: Phase, fn, calls: int = 20, reps: int = 5) -> float:
     return ms
 
 
+def kernel_device_ms(phase: Phase, fn, calls: int = 20):
+    """Device ms per call of each CUDA kernel ``fn`` launches, from
+    torch.profiler's CUPTI trace over ``calls`` calls: {kernel name: ms}.
+    A trace without device times gives {"error": ...} instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    phase.wait()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            phase.wait()
+        out = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            if us and "kernel" in ev.key:
+                out[ev.key] = us / 1e3 / calls
+        return out or {"error": "the trace holds no device time"}
+    except Exception as exc:  # the measurement is reported, never gated
+        return {"error": f"{type(exc).__name__}: {exc}"}
+
+
 def ptxas_report(log: str):
     """Registers, shared memory and spills of each kernel in the build log
     (``nvcc -Xptxas -v``)."""
@@ -392,12 +417,22 @@ def main() -> int:
             # twice the IEEE fp32 plain version.
             require(err_fp64 <= 2.0 * plain_err_fp64,
                     f"B1 R={rows}: {err_fp64} from fp64, plain fp32 {plain_err_fp64}")
-            emulation = {}
+            # p at one, two and three words into a buffer (rows at every
+            # skew from 16-byte alignment): the same arithmetic, so the
+            # output must be bitwise equal.
+            for offset in (1, 2, 3):
+                p_off = torch.empty(rows * m + offset, device=device)[offset:].view(rows, m)
+                p_off.copy_(p)
+                require(torch.equal(pallas_matvec(p_off, a), got),
+                        f"B1 R={rows}: p at a {offset}-word offset changes the output")
+                del p_off
+            emulation, profiled = {}, None
             if rows > 8:
                 k = 256
                 emulated = matmul_3xtf32_emulated(p[:k], a)
                 emulation = {"max_abs_err_vs_3xtf32_emulation_first_256_rows":
                              float((got[:k] - emulated).abs().max())}
+                profiled = kernel_device_ms(ph, lambda: pallas_matvec(p, a))
             times = timed_in_turns(ph, {"plain": lambda: pallas_matvec_plain(p, a),
                                         "kernel": lambda: pallas_matvec(p, a),
                                         "library": lambda: torch.matmul(p, a)},
@@ -418,7 +453,7 @@ def main() -> int:
                     "kernel_ms": float(np.mean(times["kernel"])),
                     "plain_ms": float(np.mean(times["plain"])),
                     "library_ms": float(np.mean(times["library"])), "turns_ms": times,
-                    "graph_ms": graph or None,
+                    "graph_ms": graph or None, "profiled_kernel_ms": profiled,
                     "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
                     "bound_parts_ms": parts,
                     "simt_bound_ms": max(parts["fp32 FMA"], parts["bytes"]),
@@ -650,6 +685,7 @@ def main() -> int:
 
         m = IMPLICIT_M_PAD
         z64 = iz_scaled.double()
+        b_loader = None
         for rows in (1, R_BATCH):
             # The path's operand: p * mask (pad columns zero), pads in place.
             p = (torch.randn(rows, m, generator=gen, device=device) * imask).contiguous()
@@ -672,6 +708,27 @@ def main() -> int:
                     (m, m, 3, rows), "matern32", 4.0 * (m * 3 + m + 1 + 2 * rows * m),
                     reps=3 if rows > 1 else 20, exact=kuu_exact,
                     emulated=kuu_emulated if rows > 8 else None, gate_fp64=rows > 8)
+            if rows > 8:
+                # The same p one word into a buffer: its rows are no longer
+                # 16-byte aligned, so the tiled launch copies its B tiles by
+                # cp.async instead of TMA.  The arithmetic is the same, so the
+                # output must be bitwise equal; the two loaders are timed in
+                # turns.
+                p_off = torch.empty(rows * m + 1, device=device)[1:].view(rows, m)
+                p_off.copy_(p)
+                same = torch.equal(kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
+                                   kuu_matvec(iz_scaled, ilam, p_off, ivar, "matern32"))
+                require(same, f"B3 kuu_matvec R={rows}: an offset view of p changes the output")
+                times = timed_in_turns(
+                    ph, {"aligned": lambda: kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
+                         "offset": lambda: kuu_matvec(iz_scaled, ilam, p_off, ivar, "matern32")},
+                    ["aligned", "offset", "offset", "aligned"], reps=3)
+                b_loader = {"rows": rows, "aligned_ms": float(np.mean(times["aligned"])),
+                            "offset_ms": float(np.mean(times["offset"])), "turns_ms": times,
+                            "bitwise_equal": same,
+                            "note": "B tile copies: TMA for 16-byte aligned rows (p), "
+                                    "cp.async for p one word into a buffer"}
+                del p_off
         xg = xq[:R_BATCH].contiguous()
         v = (torch.randn(m, 1, generator=gen, device=device) * imask[:, None]).contiguous()
         v_abs = v.abs()
@@ -694,7 +751,7 @@ def main() -> int:
                         lambda: gram_matvec_plain(xr, zr, vr_abs, 1.3, kernel_name),
                         (n_r, m_r, d_r, r_r), kernel_name,
                         4.0 * ((n_r + m_r) * d_r + m_r * r_r + 1 + n_r * r_r), reps=10)
-        emit({"phase": "B3", "cases": cases, "library_ms": None,
+        emit({"phase": "B3", "cases": cases, "b_loader": b_loader, "library_ms": None,
               "library_note": "no single PyTorch call builds and contracts the Gram matrix",
               "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, 16 special-function "
                       "results/clock/SM x 132 SMs at the max SM clock, HBM 3.35 TB/s (H100 SXM)",

@@ -62,6 +62,32 @@ def test_b1_matches_plain_and_fp64(cuda, rows):
     assert _max_rel(got, exact, scale) <= 2 * _max_rel(plain, exact, scale)
 
 
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` words into its buffer."""
+    view = torch.empty(t.numel() + offset, device=t.device)[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("rows", [1, 9, 300])
+def test_b1_takes_p_at_any_offset(cuda, rows, offset):
+    # p one to three words into its buffer: its rows sit at every skew from
+    # 16-byte alignment; the kernel reads the same values, so the output is
+    # bitwise the aligned one's.
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.randn(M_DENSE, M_DENSE, generator=gen, device=cuda)
+    a = ((g @ g.T) / M_DENSE + torch.eye(M_DENSE, device=cuda)).contiguous()
+    p = torch.randn(rows, M_DENSE, generator=gen, device=cuda)
+    p_off = _at_offset(p, offset)
+    assert p_off.data_ptr() % 16 == 4 * offset
+    got = pallas_matvec(p_off, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pallas_matvec(p, a))
+    scale = float((p.abs() @ a.abs()).max())
+    assert _max_rel(got, pallas_matvec_plain(p, a), scale) <= 1e-5
+
+
 def _dense_system(device):
     from cggp_tpu_torch.data import synthetic
     from cggp_tpu_torch.models.cggp import CGGP
@@ -146,3 +172,16 @@ def test_b3_gram_matches_plain(cuda, kernel_name, n, m, d, r):
     plain = gram_matvec_plain(x, z, v, 1.3, kernel_name)
     scale = float(gram_matvec_plain(x, z, v.abs(), 1.3, kernel_name).max())
     assert _max_rel(got, plain, scale) <= 5e-5
+
+
+@pytest.mark.parametrize("rows", [9, 300])
+def test_b3_kuu_takes_p_at_an_offset(cuda, rows):
+    # p one word into its buffer: rows no longer 16-byte aligned, so the
+    # tiled launch copies its B tiles another way; the output is bitwise the
+    # aligned one's.
+    z, lam, p = _implicit_operands(cuda, rows)
+    var = torch.ones(1, device=cuda)
+    p_off = _at_offset(p, 1)
+    got = kuu_matvec(z, lam, p_off, var, "matern32")
+    torch.cuda.synchronize()
+    assert torch.equal(got, kuu_matvec(z, lam, p, var, "matern32"))
