@@ -246,6 +246,17 @@ def graph_ms(phase: Phase, fn, calls: int = 20, reps: int = 5) -> float:
     return ms
 
 
+def b3_loader(b: torch.Tensor, rows: int, row_stride: int, depth_stride: int) -> str:
+    """How B3 copies its B operand B(r, k) = b[r * row_stride + k * depth_stride]
+    at ``rows`` rows, by the rule of ``csrc/pallas_gram.cu`` (TiledLaunch): up
+    to 8 rows the small launch reads it directly; above, one TMA copy per
+    stage when B's rows are contiguous and 16-byte aligned, else cp.async."""
+    if rows <= 8:
+        return "small launch"
+    aligned = depth_stride == 1 and row_stride % 4 == 0 and b.data_ptr() % 16 == 0
+    return "tma" if aligned else "cp.async"
+
+
 def kernel_device_ms(phase: Phase, fn, calls: int = 20):
     """Device ms per call of each CUDA kernel ``fn`` launches, from
     torch.profiler's CUPTI trace over ``calls`` calls: {kernel name: ms}.
@@ -635,7 +646,7 @@ def main() -> int:
         gen = torch.Generator(device=device).manual_seed(1)
         cases = []
 
-        def b3_case(label, fn, plain, plain_abs, shape, kernel_name, nbytes, reps,
+        def b3_case(label, fn, plain, plain_abs, shape, kernel_name, nbytes, reps, loader,
                     exact=None, emulated=None, gate_fp64=False):
             got = fn()
             want = plain()
@@ -670,7 +681,7 @@ def main() -> int:
             bound, bound_by, bound_what, parts = gram_bound(
                 n, m, d, r, kernel_name, sm_clock_mhz * 1e6, nbytes)
             case = {"case": label, "kernel": kernel_name, "n": n, "m": m, "d": d, "r": r,
-                    "max_abs_err": err, "max_rel_err": err / scale, **accuracy,
+                    "b_loader": loader, "max_abs_err": err, "max_rel_err": err / scale, **accuracy,
                     "tolerance": f"max_abs_err <= 5e-5 * max(|B| K) = {tol:.3g}"
                                  + ("; vs fp64 <= 2x the plain version's" if gate_fp64 else ""),
                     "kernel_ms": float(np.mean(times["kernel"])),
@@ -706,7 +717,7 @@ def main() -> int:
                     lambda: kuu_matvec_plain(iz_scaled, ilam, p, ivar, "matern32"),
                     lambda: kuu_matvec_plain(iz_scaled, ilam, p_abs, ivar, "matern32"),
                     (m, m, 3, rows), "matern32", 4.0 * (m * 3 + m + 1 + 2 * rows * m),
-                    reps=3 if rows > 1 else 20, exact=kuu_exact,
+                    reps=3 if rows > 1 else 20, loader=b3_loader(p, rows, m, 1), exact=kuu_exact,
                     emulated=kuu_emulated if rows > 8 else None, gate_fp64=rows > 8)
             if rows > 8:
                 # The same p one word into a buffer: its rows are no longer
@@ -725,9 +736,8 @@ def main() -> int:
                     ["aligned", "offset", "offset", "aligned"], reps=3)
                 b_loader = {"rows": rows, "aligned_ms": float(np.mean(times["aligned"])),
                             "offset_ms": float(np.mean(times["offset"])), "turns_ms": times,
-                            "bitwise_equal": same,
-                            "note": "B tile copies: TMA for 16-byte aligned rows (p), "
-                                    "cp.async for p one word into a buffer"}
+                            "bitwise_equal": same, "aligned": b3_loader(p, rows, m, 1),
+                            "offset": b3_loader(p_off, rows, m, 1)}
                 del p_off
         xg = xq[:R_BATCH].contiguous()
         v = (torch.randn(m, 1, generator=gen, device=device) * imask[:, None]).contiguous()
@@ -736,7 +746,7 @@ def main() -> int:
                 lambda: gram_matvec_plain(xg, iz_scaled, v, ivar, "matern32"),
                 lambda: gram_matvec_plain(xg, iz_scaled, v_abs, ivar, "matern32"),
                 (R_BATCH, m, 3, 1), "matern32", 4.0 * ((R_BATCH + m) * 3 + m + 1 + R_BATCH),
-                reps=20)
+                reps=20, loader=b3_loader(v, 1, 1, 1))
         # Ragged cases of every family: the small launch (R = 5) and the
         # tiled one reading B transposed (R = 37 at D = 5, R = 130 at D = 32).
         for n_r, m_r, d_r, r_r in ((1000, 777, 3, 5), (1000, 777, 5, 37), (333, 1001, 32, 130)):
@@ -750,7 +760,8 @@ def main() -> int:
                         lambda: gram_matvec_plain(xr, zr, vr, 1.3, kernel_name),
                         lambda: gram_matvec_plain(xr, zr, vr_abs, 1.3, kernel_name),
                         (n_r, m_r, d_r, r_r), kernel_name,
-                        4.0 * ((n_r + m_r) * d_r + m_r * r_r + 1 + n_r * r_r), reps=10)
+                        4.0 * ((n_r + m_r) * d_r + m_r * r_r + 1 + n_r * r_r), reps=10,
+                        loader=b3_loader(vr, r_r, 1, r_r))
         emit({"phase": "B3", "cases": cases, "b_loader": b_loader, "library_ms": None,
               "library_note": "no single PyTorch call builds and contracts the Gram matrix",
               "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, 16 special-function "
