@@ -116,14 +116,23 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            i64 = ctypes.c_longlong
             lib.cggp_pallas_matvec.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr]
             lib.cggp_pallas_matvec.restype = i32
             lib.cggp_pallas_matvec_scratch_words.argtypes = [i32, i32]
             lib.cggp_pallas_matvec_scratch_words.restype = ctypes.c_longlong
-            lib.cggp_cg_grid.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
-            lib.cggp_cg_grid.restype = i32
-            lib.cggp_pallas_cg_solve.argtypes = [ptr] * 9 + [i32, i32, f32, i32, i32, ptr]
+            lib.cggp_cg_plan.argtypes = [i32, i32, i32] + [ctypes.POINTER(i32)] * 3 + [
+                ctypes.POINTER(i64)]
+            lib.cggp_cg_plan.restype = i32
+            lib.cggp_cg_work_words.argtypes = [i32, i32, i32, i32]
+            lib.cggp_cg_work_words.restype = i64
+            lib.cggp_cg_split_words.argtypes = [i32, i32]
+            lib.cggp_cg_split_words.restype = i64
+            lib.cggp_pallas_cg_solve.argtypes = ([ptr] * 6 + [i32, i32, f32, i32, i32, i32, i32,
+                                                              i64, ptr])
             lib.cggp_pallas_cg_solve.restype = i32
+            lib.cggp_cg_sync_floor.argtypes = [i32, i64, i32, ptr]
+            lib.cggp_cg_sync_floor.restype = i32
             lib.cggp_gram_matvec.argtypes = ([ptr] * 6 + [i32] * 4 + [ctypes.c_longlong] * 4
                                              + [i32, ptr])
             lib.cggp_gram_matvec.restype = i32

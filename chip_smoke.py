@@ -17,7 +17,11 @@ Phases, each printing one JSON line of its own:
               version's), timed in turns with the plain version and
               ``torch.matmul`` (back-to-back calls; at R = 1 also replayed
               from a CUDA graph, the host out of the way).
-5. ``B2``     ``pallas_cg_solve`` against its plain version at R = 1 and 8192.
+5. ``B2``     ``pallas_cg_solve`` at R = 1 (the small-R path) and 8192 (the tiled
+              3xTF32 path) against its plain version, its 3xTF32 emulation,
+              fp64 and the JAX package's step counts; repeat runs bitwise
+              equal; timed in turns with the plain version, per step and
+              beside a kernel that only synchronises the same grid as often.
 6. ``serve_pallas_resident`` / ``serve_pallas``  the port's serving path
               (``CGGP.posterior(solver="cg")`` + ``predict_in_batches``,
               4 x 8192 query points) through each kernel, with the launch
@@ -111,6 +115,22 @@ IMPLICIT_TIGHT_THRESHOLD = 1e-9
 # gate is 5e-4 and 5e-5, 5x and 12x the latter.
 IMPLICIT_ATOL = {"mean": 3 * 3.5e-3, "var": 3 * 1.0e-3}
 IMPLICIT_TIGHT_ATOL = {"mean": 5e-4, "var": 5e-5}
+# The JAX package's own fp32 CG step counts for chip_smoke.py's B2 inputs
+# (the committed M = 989 selection, Matern32 at init parameters, absolute
+# threshold 1e-8, max_iterations = M): the rhs pseudo_u (255 steps, both
+# the _cg_kernel loop under jax.jit at Precision.HIGHEST and
+# pallas_cg_solve(interpret=True)) and K(x_test[:8192], Z) (198 steps, the
+# jitted loop), run on the CPU with jax 0.9.0.
+JAX_CG_STEPS = {"pseudo_u": 255, "kmn_batch": 198}
+# The earlier B2 design (a SIMT fp32 tile product in the same cooperative
+# grid) took 28.48 ms for the pseudo_u solve on an H100 80GB HBM3 at 700 W
+# (PERF.md's kernel table): the small-R path must beat it.
+B2_R1_BEFORE_MS = 28.48
+# The JAX package's fp32 matrix-free route (use_pallas=False) at relative
+# threshold 1e-5, against its fp64 Cholesky posterior, over the first 512 of
+# the matrix-free query points (x_test[:512]), on the CPU with jax 0.9.0:
+# max abs gap of the mean and of the variance.
+JAX_IMPLICIT_GAP_512 = {"mean": 7.081343216427172e-3, "var": 9.075545169006105e-4}
 
 _T0 = time.monotonic()
 
@@ -330,7 +350,9 @@ def main() -> int:
     from cggp_tpu_torch.ops.cg import ConjugateGradient
     from cggp_tpu_torch.ops.kernels import Matern32
     from cggp_tpu_torch.ops.linalg import add_diagonal
-    from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve, pallas_cg_solve_plain
+    from cggp_tpu_torch.ops.pallas_cg import (pallas_cg_plan, pallas_cg_solve,
+                                              pallas_cg_solve_3xtf32_emulated,
+                                              pallas_cg_solve_plain, pallas_cg_sync_floor)
     from cggp_tpu_torch.ops.pallas_matvec import (matmul_3xtf32_emulated, pallas_matvec,
                                                   pallas_matvec_plain)
     from cggp_tpu_torch.training.optimize import predict_in_batches
@@ -479,56 +501,109 @@ def main() -> int:
             "bound_by": big["bound_by"], "library_ms": big["library_ms"]}
 
     # -- B2: pallas_cg_solve ---------------------------------------------------
-    with Phase("B2", 240) as ph:
+    with Phase("B2", 300) as ph:
         max_it = m
         a64 = kmm_lambda.double()
+        b2_ptxas = [k for k in ptxas if "pallas_cg_cu" in k["kernel"]]
         cases = []
         for name, rhs in (("pseudo_u", u_row), ("kmn_batch", kmn_rows)):
             rows = rhs.shape[0]
+            plan = pallas_cg_plan(rows, m, device)
             got, steps = pallas_cg_solve(kmm_lambda, rhs, CG_THRESHOLD, max_it)
+            again, steps_again = pallas_cg_solve(kmm_lambda, rhs, CG_THRESHOLD, max_it)
             want, steps_plain = pallas_cg_solve_plain(kmm_lambda, rhs, CG_THRESHOLD, max_it)
+            emulated, steps_emulated = pallas_cg_solve_3xtf32_emulated(kmm_lambda, rhs,
+                                                                       CG_THRESHOLD, max_it)
             ph.wait()
-            steps, steps_plain = int(steps), int(steps_plain)
+            steps, steps_plain, steps_emulated = int(steps), int(steps_plain), int(steps_emulated)
+            bitwise = bool(torch.equal(got, again)) and int(steps_again) == steps
             exact = torch.linalg.solve(a64, rhs.double().T).T
             scale = float(exact.abs().max())
             err = float((got - want).abs().max())
+            err_emulated = float((got - emulated).abs().max())
             err_exact = float((got.double() - exact).abs().max())
             err_exact_plain = float((want.double() - exact).abs().max())
+            del exact, again, emulated
             # fp32 CG runs whose sums differ in order drift apart before they
             # converge; at this threshold JAX's fp32 CG on the CPU sat within
             # 2e-4 (relative to max |v|) of the exact solve, so both are held
-            # to 10x that, and the step counts to a few percent.
+            # to 10x that, and the step counts to a few percent of the plain
+            # loop's and of the JAX package's own (JAX_CG_STEPS).
             tol = 2e-3 * scale
+            jax_steps = JAX_CG_STEPS[name]
             require(steps < max_it, f"B2 {name}: no convergence in {max_it} steps")
-            require(abs(steps - steps_plain) <= max(3, 0.05 * steps_plain),
-                    f"B2 {name}: steps {steps} vs plain {steps_plain}")
+            for label, ref in (("plain", steps_plain), ("JAX", jax_steps)):
+                require(abs(steps - ref) <= max(3, 0.05 * ref),
+                        f"B2 {name}: steps {steps} vs {label} {ref}")
             require(err <= tol and err_exact <= tol,
                     f"B2 {name}: err {err}, vs exact {err_exact}, tolerance {tol}")
-            kernel_ms = event_ms(ph, lambda: pallas_cg_solve(kmm_lambda, rhs, CG_THRESHOLD,
-                                                             max_it), reps=3)
-            plain_ms = event_ms(ph, lambda: pallas_cg_solve_plain(kmm_lambda, rhs, CG_THRESHOLD,
-                                                                  max_it), reps=2)
-            # Bytes: A and b read once, v written once.  Operations: per step
-            # the [R, M] x [M, M] product (3xTF32-able) plus ~11 R M for dots
-            # and updates (fp32 FMA).
+            # The kernel is no further from the fp64 solve than twice the
+            # IEEE fp32 plain loop, as B1 and B3 are held to fp64.
+            require(err_exact <= 2.0 * err_exact_plain,
+                    f"B2 {name}: {err_exact} from fp64, plain fp32 {err_exact_plain}")
+            require(bitwise, f"B2 {name}: two runs of the same solve differ")
+            times = timed_in_turns(
+                ph, {"plain": lambda: pallas_cg_solve_plain(kmm_lambda, rhs, CG_THRESHOLD, max_it),
+                     "kernel": lambda: pallas_cg_solve(kmm_lambda, rhs, CG_THRESHOLD, max_it)},
+                ["plain", "kernel", "kernel", "plain"], reps=3)
+            kernel_ms = float(np.mean(times["kernel"]))
+            plain_ms = float(np.mean(times["plain"]))
+            # Two grid.sync()s a step and one before the first.
+            syncs = 2 * steps + 1
+            sync_floor_ms = event_ms(ph, lambda: pallas_cg_sync_floor(plan, syncs, device),
+                                     reps=5)
+            profiled = kernel_device_ms(ph, lambda: pallas_cg_solve(kmm_lambda, rhs,
+                                                                    CG_THRESHOLD, max_it),
+                                        calls=3)
+            split_ms = sum(v for k, v in profiled.items() if "split_b_kernel" in k)
+            solve_ms = sum(v for k, v in profiled.items() if "cg_" in k and "kernel" in k)
+            # Bytes of this design (csrc/pallas_cg.cu), each counted once: A
+            # and b read, v written, and per step on the tiled path p read
+            # and pA written by the product, p, r, pA, v read and v, r, p
+            # written by the row pass (9 R M words); on the small-R path r
+            # written and read and each block's two partial dots.
+            # Operations: per step the [R, M] x [M, M] product (3xTF32 on
+            # the tiled path, fp32 FMA on the small-R path) plus ~11 R M for
+            # dots and updates.
+            tiled = plan["path"] == "tiled"
+            per_step_bytes = 4.0 * (9 * rows * m if tiled
+                                    else 2 * rows * m + 4 * plan["grid"] * rows)
             bound, bound_by, bound_what, parts = bound_parts(
-                4.0 * (m * m + 2 * rows * m), steps * (2.0 * rows * m * m + 11.0 * rows * m),
-                steps * 2.0 * rows * m * m)
-            cases.append({"rhs": name, "rows": rows, "m": m, "steps": steps,
-                          "steps_plain": steps_plain, "max_abs_err": err,
+                4.0 * (m * m + 2 * rows * m) + steps * per_step_bytes,
+                steps * (2.0 * rows * m * m + 11.0 * rows * m),
+                steps * 2.0 * rows * m * m if tiled else 0.0)
+            cases.append({"rhs": name, "rows": rows, "m": m, "plan": plan, "steps": steps,
+                          "steps_plain": steps_plain, "steps_jax_cpu": jax_steps,
+                          "steps_3xtf32_emulated": steps_emulated, "max_abs_err": err,
+                          "max_abs_err_vs_3xtf32_emulation": err_emulated,
                           "max_abs_err_vs_fp64_solve": err_exact,
                           "plain_max_abs_err_vs_fp64_solve": err_exact_plain,
-                          "tolerance": f"max_abs_err <= 2e-3 * max|v| = {tol:.3g}",
-                          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                          "bitwise_equal_repeat": bitwise,
+                          "tolerance": f"max_abs_err <= 2e-3 * max|v| = {tol:.3g}; vs fp64 <= "
+                                       "2x the plain version's; steps within max(3, 5 %) of "
+                                       "the plain loop's and JAX's",
+                          "kernel_ms": kernel_ms, "plain_ms": plain_ms, "turns_ms": times,
+                          "per_step_ms": kernel_ms / max(steps, 1),
+                          "sync_floor_ms": sync_floor_ms, "syncs": syncs,
+                          "profiled_kernel_ms": profiled,
+                          "split_share": split_ms / (split_ms + solve_ms) if solve_ms else None,
+                          "bytes_per_step": per_step_bytes,
                           "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
                           "bound_parts_ms": parts,
                           "simt_bound_ms": max(parts["fp32 FMA"], parts["bytes"]),
-                          "per_step_bound_ms": bound / steps if bound_by == "operations" else None,
+                          "per_step_bound_ms": bound / max(steps, 1),
                           "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, HBM 3.35 TB/s "
                                   "(H100 SXM data sheet)"})
+        # The design's targets: the tiled path beats the plain loop, the
+        # small-R path the earlier SIMT kernel.
+        require(cases[1]["kernel_ms"] < cases[1]["plain_ms"],
+                f"B2 R={R_BATCH}: {cases[1]['kernel_ms']} ms, plain {cases[1]['plain_ms']} ms")
+        require(cases[0]["kernel_ms"] < B2_R1_BEFORE_MS,
+                f"B2 R=1: {cases[0]['kernel_ms']} ms, the SIMT kernel {B2_R1_BEFORE_MS} ms")
         emit({"phase": "B2", "cases": cases, "library_ms": None,
               "library_note": "no single PyTorch call computes a CG solve",
-              "wall_s": ph.elapsed()})
+              "ptxas": b2_ptxas, "b1_kernel_ms_r8192": kernels["pallas_matvec"]["ms"],
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
         big = cases[-1]
         kernels["pallas_cg_solve"] = {
             "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
@@ -817,6 +892,9 @@ def main() -> int:
             rows = xs.shape[0]
             gaps = {"mean": float((mean.double() - ref_mean[:rows]).abs().max()),
                     "var": float((var.double() - ref_var[:rows]).abs().max())}
+            # Over the points the JAX package's own gap was measured on.
+            gaps_512 = {"mean": float((mean[:512].double() - ref_mean[:512]).abs().max()),
+                        "var": float((var[:512].double() - ref_var[:512]).abs().max())}
             require(all(gaps[k] <= atol[k] for k in gaps),
                     f"{name}: gaps to the fp64 Cholesky posterior {gaps} beyond {atol}")
             serve_s = t2 - t1
@@ -828,6 +906,12 @@ def main() -> int:
                       "cg_steps_per_batch": steps[1:],
                       "ms_per_cg_step_serving": serve_s * 1e3 / sum(steps[1:]),
                       "mean_vs_fp64_chol": gaps["mean"], "var_vs_fp64_chol": gaps["var"],
+                      "mean_vs_fp64_chol_first_512": gaps_512["mean"],
+                      "var_vs_fp64_chol_first_512": gaps_512["var"],
+                      **({"jax_cpu_vs_fp64_chol_first_512": JAX_IMPLICIT_GAP_512,
+                          "mean_gap_over_jax_first_512":
+                              gaps_512["mean"] / JAX_IMPLICIT_GAP_512["mean"]}
+                         if threshold == IMPLICIT_THRESHOLD else {}),
                       "tolerance": atol, "var_min": float(var.min()),
                       "nvidia_smi": card_line, "wall_s": ph.elapsed()}
             emit(record)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions and an
 fp64 reference, at chip_smoke.py's tolerances: B1 (``pallas_matvec``), B2
-(``pallas_cg_solve``) and B3 (``gram_matvec`` / ``kuu_matvec``).
+(``pallas_cg_solve``: both launch paths, each side of the small-R switches,
+the edge cases, bitwise repeats) and B3 (``gram_matvec`` / ``kuu_matvec``).
 
 Every test takes the ``cuda`` fixture, which skips it without a card (the
 CPU runs); the decision is made there, never at import, so every worker
@@ -20,7 +21,7 @@ import torch
 
 from cggp_tpu_torch.ops.cg_implicit import pad_inducing
 from cggp_tpu_torch.ops.kernels import kernel_value_from_r2, scaled_squared_distance
-from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve, pallas_cg_solve_plain
+from cggp_tpu_torch.ops.pallas_cg import pallas_cg_plan, pallas_cg_solve, pallas_cg_solve_plain
 from cggp_tpu_torch.ops.pallas_gram import (gram_matvec, gram_matvec_plain, kuu_matvec,
                                             kuu_matvec_plain)
 from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec, pallas_matvec_plain
@@ -118,11 +119,128 @@ def test_b2_matches_plain_and_fp64(cuda, rhs_name):
     plain, steps_plain = pallas_cg_solve_plain(a, b, 1e-8, m)
     torch.cuda.synchronize()
     exact = torch.linalg.solve(a.double(), b.double().T).T
-    tol = 2e-3 * float(exact.abs().max())  # chip_smoke.py's B2 gate
+    tol = 2e-3 * float(exact.abs().max())  # chip_smoke.py's B2 gates
     assert int(steps) < m
     assert abs(int(steps) - int(steps_plain)) <= max(3, 0.05 * int(steps_plain))
     assert float((got - plain).abs().max()) <= tol
-    assert float((got.double() - exact).abs().max()) <= tol
+    err_exact = float((got.double() - exact).abs().max())
+    assert err_exact <= tol
+    assert err_exact <= 2 * float((plain.double() - exact).abs().max())
+
+
+def _spd_system(device, m, rows, seed):
+    """An SE Gram matrix of points in [-1, 1]^2 plus a diagonal shift in
+    [0.2, 0.6] (as tests/test_torch_pallas_cg.py), and standard normal rows."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    z = torch.rand(m, 2, generator=gen, device=device) * 2 - 1
+    lam = torch.rand(m, generator=gen, device=device) * 0.4 + 0.2
+    a = (torch.exp(-0.5 * torch.cdist(z, z) ** 2) + torch.diag(lam)).contiguous()
+    return a, torch.randn(rows, m, generator=gen, device=device)
+
+
+# 0.5 |r|^2 <= thr puts a converged row within sqrt(2 thr) / lambda_min of
+# the exact solution, lambda_min >= 0.2 here; twice that for fp32 drift.
+B2_THRESHOLD = 1e-8
+B2_TOL = 2 * (2 * B2_THRESHOLD) ** 0.5 / 0.2
+
+
+def _check_b2(a, b, max_iterations=None):
+    """B2 against the plain loop and the fp64 solve: steps within
+    max(3, 15 %) of the plain loop's (fp32 runs whose sums differ in order
+    cross the threshold a few steps apart on these systems), both solutions
+    within the stop rule's bound of the fp64 solve; two runs bitwise equal."""
+    m = a.shape[0]
+    cap = m if max_iterations is None else max_iterations
+    launches = pallas_cg_solve.launches
+    got, steps = pallas_cg_solve(a, b, B2_THRESHOLD, cap)
+    again, steps_again = pallas_cg_solve(a, b, B2_THRESHOLD, cap)
+    plain, steps_plain = pallas_cg_solve_plain(a, b, B2_THRESHOLD, cap)
+    torch.cuda.synchronize()
+    assert pallas_cg_solve.launches == launches + 2
+    assert steps.dtype == torch.int32 and steps.shape == () and steps.device == b.device
+    assert torch.equal(got, again) and int(steps) == int(steps_again)
+    assert int(steps) < cap
+    assert abs(int(steps) - int(steps_plain)) <= max(3, 0.15 * int(steps_plain))
+    exact = torch.linalg.solve(a.double(), b.double().T).T
+    assert float((got.double() - exact).abs().max()) <= B2_TOL
+    assert float((plain.double() - exact).abs().max()) <= B2_TOL
+    return got, steps
+
+
+@pytest.mark.parametrize("m", [33, 989, 1000])
+@pytest.mark.parametrize("rows", [1, 2, 8, 9, 130, 8192])
+def test_b2_shapes_match_plain_and_fp64(cuda, rows, m):
+    a, b = _spd_system(cuda, m, rows, seed=rows + m)
+    path = pallas_cg_plan(rows, m, cuda)["path"]
+    assert path == ("small_resident" if rows <= 8 else "tiled")
+    _check_b2(a, b)
+
+
+def _largest_m(device, rows, path):
+    """The largest M whose plan for `rows` rows is `path`, by bisection: as
+    M grows a small-R solve goes from A in shared memory to A streamed to
+    the tiled path, never back."""
+    order = {"small_resident": 0, "small_streamed": 1, "tiled": 2}
+
+    def at_most(m):
+        return order[pallas_cg_plan(rows, m, device)["path"]] <= order[path]
+
+    lo, hi = 33, 65536
+    assert at_most(lo) and not at_most(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if at_most(mid) else (lo, mid)
+    assert pallas_cg_plan(rows, lo, device)["path"] == path
+    return lo
+
+
+@pytest.mark.parametrize("rows,path,side", [
+    (1, "small_resident", 0), (1, "small_resident", 1),
+    (8, "small_resident", 0), (8, "small_resident", 1),
+    (8, "small_streamed", 0), (8, "small_streamed", 1)])
+def test_b2_small_r_switch(cuda, rows, path, side):
+    # Each side of a switch: A's column slices in shared memory, then
+    # streamed from L2; at R = 8 also p in shared memory, then the tiled path.
+    last = _largest_m(cuda, rows, path)
+    after = {"small_resident": "small_streamed", "small_streamed": "tiled"}[path]
+    m = last + side
+    assert pallas_cg_plan(rows, m, cuda)["path"] == (path if side == 0 else after)
+    a, b = _spd_system(cuda, m, rows, seed=m)
+    _check_b2(a, b)
+
+
+@pytest.mark.parametrize("rows", [1, 130])
+def test_b2_zero_cap_and_rhs_under_threshold(cuda, rows):
+    a, b = _spd_system(cuda, 989, rows, seed=5)
+    v, steps = pallas_cg_solve(a, b, B2_THRESHOLD, 0)  # no step allowed
+    small = b * (B2_THRESHOLD ** 0.5 / float(b.norm(dim=1).max()))  # 0.5 |b|^2 < thr
+    w, steps_small = pallas_cg_solve(a, small, B2_THRESHOLD, 989)
+    torch.cuda.synchronize()
+    assert int(steps) == 0 and not v.any()
+    assert int(steps_small) == 0 and not w.any()
+
+
+@pytest.mark.parametrize("rows", [5, 9])
+def test_b2_zero_rows(cuda, rows):
+    # Zero rows stay exactly zero and never hold the others back.
+    a, b = _spd_system(cuda, 989, rows, seed=6)
+    b[1] = 0.0
+    b[3] = 0.0
+    got, _ = _check_b2(a, b)
+    assert not got[1].any() and not got[3].any()
+
+
+@pytest.mark.parametrize("rows", [1, 9, 300])
+def test_b2_takes_rhs_at_an_offset(cuda, rows):
+    # The rhs one word into its buffer (rows not 16-byte aligned): the same
+    # values are read, so the output is bitwise the aligned one's.
+    a, b = _spd_system(cuda, 989, rows, seed=7)
+    b_off = _at_offset(b, 1)
+    assert b_off.data_ptr() % 16 == 4
+    got, steps = pallas_cg_solve(a, b_off, B2_THRESHOLD, 989)
+    want, want_steps = pallas_cg_solve(a, b, B2_THRESHOLD, 989)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(steps) == int(want_steps)
 
 
 def _implicit_operands(device, rows):

@@ -1,7 +1,11 @@
 """Port parity for kernel B2 (``pallas_cg_solve``) and the CG solver routes:
 the port on CPU tensors against the JAX package, whose Pallas kernels run in
-interpret mode.  The CUDA kernel itself is held against its plain version on
-the card by ``chip_smoke.py``."""
+interpret mode, and the 3xTF32 emulation of the kernel's tiled path
+(``pallas_cg_solve_3xtf32_emulated``) against the same.  The CUDA kernel
+itself is held against its plain version on the card by
+``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``."""
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +18,7 @@ from cggp_tpu.ops.kernels import SquaredExponential as JaxSE
 from cggp_tpu.ops.linalg import add_diagonal as jax_add_diagonal
 from cggp_tpu.ops.pallas_cg import pallas_cg_solve as jax_pallas_cg_solve
 from cggp_tpu_torch.ops.cg import ConjugateGradient, EyePreconditioner, conjugate_gradient
-from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve
+from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve, pallas_cg_solve_3xtf32_emulated
 
 torch.set_num_threads(1)
 
@@ -89,6 +93,86 @@ def test_pallas_cg_solve_cap_and_zero_rows():
     assert not got[1].any()
     # Seven unconverged fp32 iterations: rounding drift ~1e-7 * 10^5 (see above).
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-2, atol=1e-2)
+
+
+# The 3xTF32 emulation against JAX interpret: (m, r, threshold,
+# max_iterations, rhs).  Twelve converged solves at the serving threshold
+# 1e-8, an early stop, a zero cap and an all-zero rhs.
+EMULATION_CASES = ([(m, r, 1e-8, 512, "normal") for m in (33, 130, 257) for r in (1, 5, 9, 130)]
+                   + [(130, 9, 1e-2, 512, "normal"), (130, 9, 1e-8, 0, "normal"),
+                      (130, 9, 1e-8, 512, "zero")])
+
+
+@pytest.mark.parametrize("m,r,threshold,max_iterations,rhs_kind", EMULATION_CASES)
+def test_pallas_cg_solve_3xtf32_emulated_matches_jax_interpret(m, r, threshold, max_iterations,
+                                                               rhs_kind):
+    a, rhs = _system(m + r, m=m, r=r)
+    if rhs_kind == "zero":
+        rhs[:] = 0.0
+    want, want_steps = jax_pallas_cg_solve(jnp.asarray(a), jnp.asarray(rhs), threshold,
+                                           max_iterations, interpret=True)
+    got, got_steps = pallas_cg_solve_3xtf32_emulated(torch.as_tensor(a), torch.as_tensor(rhs),
+                                                     threshold, max_iterations)
+    want = np.asarray(want)
+    assert got_steps.dtype == torch.int32 and got_steps.shape == () and got.shape == (r, m)
+    if max_iterations == 0 or rhs_kind == "zero":
+        # No step is taken (the cap, or every row already meets the stop
+        # rule): both return v0 = 0 exactly.
+        assert int(got_steps) == int(want_steps) == 0
+        assert not got.any() and not want.any()
+        return
+    if threshold >= 1e-2:
+        # An early stop, far above fp32 rounding: the same step (or one
+        # apart), and the stop rule holds for the returned solution.
+        assert abs(int(got_steps) - int(want_steps)) <= 1
+        residual = rhs.astype(np.float64) - got.numpy().astype(np.float64) @ a
+        assert (0.5 * np.sum(residual ** 2, axis=-1)).max() <= 1.01 * threshold
+        return
+    # Converged at 1e-8: fp32 CG runs whose sums differ in order cross the
+    # threshold a few steps apart on these systems (the plain fp32 loop and
+    # JAX interpret, over these twelve shapes with two seeds each: up to 5
+    # steps of ~40), so the steps are held to max(3, 15 %) of JAX's, and
+    # both solutions to the stop rule's bound of the fp64 solve and so of
+    # each other.
+    assert abs(int(got_steps) - int(want_steps)) <= max(3, 0.15 * int(want_steps))
+    exact = np.linalg.solve(a.astype(np.float64), rhs.astype(np.float64).T).T
+    tol = _cg_tol(threshold)
+    assert np.abs(got.numpy() - exact).max() <= tol and np.abs(want - exact).max() <= tol
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+
+
+def test_pallas_cg_solve_3xtf32_emulated_pseudo_u_matches_jax_at_m989():
+    """The full pseudo-u solve of the dense serving workload (the committed
+    M = 989 selection, Matern32 at init parameters, absolute threshold
+    1e-8): JAX's pallas_cg_solve in interpret mode takes 255 steps, the
+    emulation 251, the plain fp32 loop 249 (on this CPU); the steps are held
+    to max(3, 2 %) of JAX's and the solution to chip_smoke.py's B2 gate,
+    2e-3 of max |v|."""
+    from cggp_tpu_torch.data import synthetic
+    from cggp_tpu_torch.models.cggp import CGGP
+    from cggp_tpu_torch.ops.kernels import Matern32
+    from cggp_tpu_torch.ops.linalg import add_diagonal
+
+    root = Path(__file__).resolve().parent.parent
+    with np.load(root / "benchmarks" / "e2e_selection_covertree.npz") as sel:
+        iv, u, counts = sel["iv"], sel["u"], sel["counts"]
+    (x_train, _), _ = synthetic(n=435_000, dim=3, seed=0)
+    model = CGGP(kernel=Matern32(), num_data=x_train.shape[0],
+                 conjugate_gradient=ConjugateGradient(1e-8))
+    params = model.init_params(iv, pseudo_u=u, cluster_counts=counts, dtype=torch.float32,
+                               device="cpu")
+    a = add_diagonal(Matern32().K(params["kernel"], params["inducing_points"]),
+                     model.diag_variance(params)[:, 0]).contiguous()
+    b = params["pseudo_u"].T.contiguous()
+    m = a.shape[0]
+    assert m == 989
+    want, want_steps = jax_pallas_cg_solve(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()), 1e-8,
+                                           m, interpret=True)
+    got, got_steps = pallas_cg_solve_3xtf32_emulated(a, b, 1e-8, m)
+    assert int(want_steps) == 255
+    assert abs(int(got_steps) - int(want_steps)) <= max(3, 0.02 * int(want_steps))
+    exact = np.linalg.solve(a.double().numpy(), b.double().numpy().T).T
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= 2e-3 * np.abs(exact).max()
 
 
 def test_pallas_cg_solve_refuses_bad_operands():
