@@ -7,10 +7,14 @@ Pallas kernels on the ported path are hand-written CUDA C++ for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use (``_build.py``) and loaded
 with ``ctypes``.
 
-Ported so far (two serving slices): kernels, the Gaussian likelihood, the
-Cholesky ClusterGP oracle, the dense forward CG solver with its
-``"xla"``/``"pallas"``/``"pallas_resident"`` routes, ``CGGP.posterior``
-(``"cg"``/``"chol"``) and ``predict_in_batches``; the matrix-free
+Ported so far: kernels, the Gaussian likelihood, the Cholesky ClusterGP
+oracle (serving and ELBO), the dense CG solver with its
+``"xla"``/``"pallas"``/``"pallas_resident"`` routes, its preconditioners and
+its hand-written backward pass (another CG solve on the same route), the
+dense logdet estimators, the dense CGGP training step (fused ELBO,
+``precondition`` None/pivchol/chol/auto, capacity padding) with
+``make_adam_step`` (``optax.adam``'s update), ``CGGP.posterior``
+(``"cg"``/``"chol"``/``"auto"``) and ``predict_in_batches``; the matrix-free
 ``ImplicitCGGP`` serving path with the pivoted-Cholesky spectral
 preconditioner and the fused Gram-matvec kernel.
 

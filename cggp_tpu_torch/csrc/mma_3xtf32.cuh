@@ -5,19 +5,24 @@
 //   hi = tf32(x),  lo = tf32(x - hi)      (round to nearest, ties away),
 // so x = hi + lo to ~22 significant bits, and each product is taken as
 //   lo_a hi_b + hi_a lo_b + hi_a hi_b
-// (lo lo, ~2^-22 of the product, is dropped), the small products first, as
-// CUTLASS's gemm/warp/mma_tensor_op_fast_f32.h orders them.  One TF32 pass
+// (lo lo, ~2^-22 of the product, is dropped), the small products first.  One TF32 pass
 // keeps ~3 decimal digits; three passes give fp32-level error at three times
 // the work, and the H100 runs dense TF32 at 495 TFLOP/s against 67 TFLOP/s
 // of fp32 FMA outside the tensor cores.  No other TF32 is used.
 //
 // Accumulation.  The tensor cores' internal fp32 sum is not guaranteed to
 // round to nearest (Ootomo and Yokota, 2022, found it truncates on A100), and
-// a sum kept on them over M = 1e3-1e4 terms would drift.  So each
-// 32-deep stage (twelve wgmmas: three passes x four 8-deep steps) is summed
-// on the tensor cores from zero into `part`, and `part` is added to the
-// running sum with IEEE fp32 adds outside them: the truncation touches one
-// stage's sum only.  Nothing is atomic; the results are deterministic.
+// a sum kept on them over M = 1e3-1e4 terms would drift.  So each 32-deep
+// stage (twelve wgmmas: three passes x four 8-deep steps) is summed on the
+// tensor cores from zero in two parts (issue_stage, finish_stage), each
+// added to the running sum with IEEE fp32 adds outside them: the truncation
+// touches two 8-deep steps' large products at a time.  For data of one sign
+// it is a bias, and the ELBO's predictive variances, Kmn^T (Kmm + Lambda)^-1
+// Kmn subtracted from the prior's, magnify it.  The first training step's
+// loss from fp64, over fp32's (chip_smoke.py on an H100): a whole stage in
+// one part 4.4x, in two parts 1.8x at no cost to B1 and B2 (+4 % on B3),
+// in four parts (one large product each) 1.5x for 7-8 % more time.
+// Nothing is atomic; the results are deterministic.
 //
 // Instruction: wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32, A from
 // registers (the mma.m16n8k8 A layout per warp of the warpgroup), B from
@@ -218,13 +223,21 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // One warpgroup's 3xTF32 product of a 32-deep stage, A rows wg_row0.. read
 // through a_value(row, depth) (fp32, from shared memory), B split in b_hi /
-// b_lo:
-//   part = sum over the four 8-deep steps of (A_lo B_hi + A_hi B_lo + A_hi B_hi),
-// the small products first, summed on the tensor cores from zero.  Issued
-// asynchronously and committed: the A registers and `part` stay untouched
-// until finish_stage has waited for it.  A warp that issues a wgmma waits
-// until the tensor cores take it, so the issuing warps are busy for most of
-// the stage's tensor-core time: other work goes to other warps.
+// b_lo, added to acc in two parts, each summed on the tensor cores from
+// zero and added with IEEE fp32 adds:
+//   the eight small products A_lo B_hi + A_hi B_lo of the stage's four
+//   8-deep steps and the first two steps' A_hi B_hi (issue_stage), then
+//   A_hi B_hi of the last two steps (finish_stage).
+// The tensor cores' sum truncates, and for data of one sign (kernel values)
+// truncation is a bias, not noise: ~0.5 ulp of the running sum lost, in the
+// same direction, on every add.  Keeping each part's sum to two 8-deep
+// steps puts those losses at the ulp of a 16-deep partial, not of a
+// growing 32-deep one (the small products go first, while the sum is
+// small).  issue_stage's products run asynchronously: the A registers and
+// `part` stay untouched until finish_stage has waited for them.  A warp
+// that issues a wgmma waits until the tensor cores take it, so the issuing
+// warps are busy for most of the stage's tensor-core time: other work goes
+// to other warps.
 struct StageRegs {
   float part[64];
   uint32_t a_hi[kStageDepth / 8][4];
@@ -250,15 +263,17 @@ __device__ __forceinline__ void issue_stage(AValue a_value, const uint32_t* b_hi
     const uint64_t bh = wgmma_desc(b_hi, 8 * s), bl = wgmma_desc(b_lo, 8 * s);
     wgmma_tf32(st.part, st.a_lo[s], bh, s > 0);
     wgmma_tf32(st.part, st.a_hi[s], bl, 1);
-    wgmma_tf32(st.part, st.a_hi[s], bh, 1);
   }
+  wgmma_tf32(st.part, st.a_hi[0], wgmma_desc(b_hi, 0), 1);
+  wgmma_tf32(st.part, st.a_hi[1], wgmma_desc(b_hi, 8), 1);
   wgmma_commit();
 }
 
-// Waits for the stage and adds it to acc with IEEE fp32 adds.  The empty
-// asm statements pin part and the A registers across the asynchronous
-// wgmma: the compiler may neither read part early nor reuse the A registers.
-__device__ __forceinline__ void finish_stage(StageRegs& st, float (&acc)[64]) {
+// Waits for the products in flight and adds part to acc with IEEE fp32
+// adds.  The empty asm statements pin part and the A registers across the
+// asynchronous wgmma: the compiler may neither read part early nor reuse
+// the A registers.
+__device__ __forceinline__ void add_part(StageRegs& st, float (&acc)[64]) {
   wgmma_wait_all();
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(st.part[i])::"memory");
@@ -270,6 +285,18 @@ __device__ __forceinline__ void finish_stage(StageRegs& st, float (&acc)[64]) {
     }
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], st.part[i]);
+}
+
+// Adds issue_stage's part to acc, then the large products of the stage's
+// last two 8-deep steps (b_hi must still hold the stage).
+__device__ __forceinline__ void finish_stage(StageRegs& st, const uint32_t* b_hi,
+                                             float (&acc)[64]) {
+  add_part(st, acc);
+  wgmma_fence();  // part was read: order that before the tensor cores write it
+  wgmma_tf32(st.part, st.a_hi[2], wgmma_desc(b_hi, 16), 0);
+  wgmma_tf32(st.part, st.a_hi[3], wgmma_desc(b_hi, 24), 1);
+  wgmma_commit();
+  add_part(st, acc);
 }
 
 }  // namespace tf32x3

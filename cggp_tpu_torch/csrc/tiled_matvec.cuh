@@ -164,7 +164,7 @@ __device__ __forceinline__ void tiled_product(const float* p, int rows, int m,
     fence_proxy_async();  // ... and are visible to the tensor cores
     __syncthreads();      // everyone's have, and everyone is done with stage s - 1
     load(s + 2);          // into slot (s + 2) % 3, which held stage s - 1
-    finish_stage(st, acc);  // wgmma.wait_group 0: this stage's products are done
+    finish_stage(st, b_tile(s), acc);  // the rest of stage s, slot s % 3 untouched
   }
 }
 

@@ -1,4 +1,6 @@
-"""Shared model machinery (port of ``cggp_tpu/models/base.py``)."""
+"""Shared model machinery (port of ``cggp_tpu/models/base.py``): the Gaussian
+likelihood, minibatch scaling, the Cholesky serving cache and the
+chol-or-CG conditioning policy."""
 
 from __future__ import annotations
 
@@ -11,11 +13,13 @@ import torch
 from cggp_tpu_torch.config import DeviceLike, default_float, resolve_device
 from cggp_tpu_torch.ops.bijectors import positive
 
+_LOG2PI = math.log(2.0 * math.pi)
+
 
 @dataclasses.dataclass(frozen=True)
 class GaussianLikelihood:
-    """Gaussian likelihood with positive variance.  Its ELBO and log-density
-    terms arrive with the training slice; serving needs only the variance."""
+    """Gaussian likelihood with positive variance (GPflow's closed forms for
+    the ELBO's expected log-likelihood and the predictive log density)."""
 
     positive_lower: float = 1e-6
 
@@ -31,6 +35,26 @@ class GaussianLikelihood:
 
     def variance(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self.bijector.forward(params["variance"])
+
+    def variational_expectations(self, params, f_mean: torch.Tensor, f_var: torch.Tensor,
+                                 y: torch.Tensor) -> torch.Tensor:
+        """``E_q[log N(y | f, sigma^2)]`` per data point."""
+        noise = self.variance(params)
+        return -0.5 * (_LOG2PI + torch.log(noise) + (torch.square(y - f_mean) + f_var) / noise)
+
+    def predict_log_density(self, params, f_mean: torch.Tensor, f_var: torch.Tensor,
+                            y: torch.Tensor) -> torch.Tensor:
+        """``log N(y | f_mean, f_var + sigma^2)`` per data point."""
+        total_var = f_var + self.variance(params)
+        return -0.5 * (_LOG2PI + torch.log(total_var) + torch.square(y - f_mean) / total_var)
+
+
+def minibatch_scale(num_data: Optional[int], batch_size: int, dtype: torch.dtype) -> torch.Tensor:
+    """``N / batch`` ELBO scale in ``dtype`` (1 without ``num_data``), as a
+    0-d CPU tensor, which multiplies a tensor on any device."""
+    if num_data is None:
+        return torch.tensor(1.0, dtype=dtype)
+    return torch.tensor(num_data, dtype=dtype) / torch.tensor(batch_size, dtype=dtype)
 
 
 class CholPosterior(NamedTuple):

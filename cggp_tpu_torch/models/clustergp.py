@@ -3,8 +3,8 @@
 
 Non-trainable ``pseudo_u`` (cluster y-means) and ``cluster_counts``;
 ``diag_variance = likelihood_variance / counts`` is derived, not learned.
-Its ``predict_f`` is the Cholesky oracle the CG serving path is held
-against.
+Its ``predict_f`` and ``elbo`` are the Cholesky oracle the CG serving and
+training paths are held against.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from cggp_tpu_torch.config import DeviceLike, default_float, resolve_device
-from cggp_tpu_torch.models.base import GaussianLikelihood
+from cggp_tpu_torch.models.base import GaussianLikelihood, minibatch_scale
 from cggp_tpu_torch.ops.kernels import Kernel
 from cggp_tpu_torch.ops.linalg import add_diagonal
 
@@ -56,8 +56,51 @@ class ClusterGP:
             "cluster_counts": counts,
         }
 
+    def trainable_mask(self, params: Dict, trainable_inducing_points: bool = False,
+                       trainable_pseudo_u: bool = False) -> Dict:
+        """Only the kernel and the likelihood train by default; the mask has
+        ``params``' structure with a bool per leaf."""
+
+        def all_true(node):
+            return {k: all_true(v) for k, v in node.items()} if isinstance(node, dict) else True
+
+        mask = all_true(params)
+        mask["inducing_points"] = trainable_inducing_points
+        mask["pseudo_u"] = trainable_pseudo_u
+        mask["cluster_counts"] = False
+        return mask
+
     def diag_variance(self, params: Dict) -> torch.Tensor:
         return self.likelihood.variance(params["likelihood"]) / params["cluster_counts"]
+
+    def prior_kl(self, params: Dict) -> torch.Tensor:
+        kp = params["kernel"]
+        z = params["inducing_points"]
+        u = params["pseudo_u"]
+        var = self.diag_variance(params)
+
+        kmm = self.kernel.K(kp, z)  # jitter = 0
+        chol = torch.linalg.cholesky(add_diagonal(kmm, var[:, 0]))
+        kzz_lambda_inv_u = torch.cholesky_solve(u, chol)
+
+        quad = torch.sum((kmm @ kzz_lambda_inv_u) * kzz_lambda_inv_u)
+        trace = torch.trace(torch.cholesky_solve(kmm, chol))
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
+        const = torch.sum(torch.log(var))
+        return 0.5 * (quad - trace + logdet - const)
+
+    def elbo(self, params: Dict, data: Tuple[torch.Tensor, torch.Tensor],
+             key=None) -> torch.Tensor:
+        del key
+        x, y = data
+        kl = self.prior_kl(params)
+        f_mean, f_var = self.predict_f(params, x, full_cov=False)
+        var_exp = self.likelihood.variational_expectations(params["likelihood"], f_mean, f_var, y)
+        return torch.sum(var_exp) * minibatch_scale(self.num_data, x.shape[0], kl.dtype) - kl
+
+    def training_loss(self, params: Dict, data: Tuple[torch.Tensor, torch.Tensor],
+                      key=None) -> torch.Tensor:
+        return -self.elbo(params, data, key)
 
     def predict_f(self, params: Dict, x_new: torch.Tensor,
                   full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:

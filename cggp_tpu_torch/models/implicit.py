@@ -6,7 +6,7 @@ solves are :func:`~cggp_tpu_torch.ops.cg_implicit.make_implicit_cg` (matvecs
 over [block, M] kernel panels, or kernel B3 with ``use_pallas=True``), and
 the preconditioner is the matrix-free pivoted Cholesky.  M is padded to a
 multiple of ``block`` with exactly decoupled pseudo-points.  The SLQ logdet
-value (``_slq_value``) arrives with the training slice.
+value (``_slq_value``) arrives with the matrix-free training slice.
 """
 
 from __future__ import annotations

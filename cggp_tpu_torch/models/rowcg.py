@@ -33,7 +33,8 @@ from cggp_tpu_torch.ops.cg_implicit import pad_inducing, pivoted_cholesky_kernel
 
 
 def _training_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} arrives with the training slice of the port")
+    return NotImplementedError(f"{what} arrives with the matrix-free training slice of the port "
+                               "(ROADMAP Queue A item 5)")
 
 
 @dataclasses.dataclass(frozen=True)

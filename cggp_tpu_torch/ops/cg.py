@@ -1,34 +1,38 @@
-"""Batched conjugate gradients, forward solve (port of ``cggp_tpu/ops/cg.py``).
+"""Batched preconditioned conjugate gradients with a hand-written backward
+pass (port of ``cggp_tpu/ops/cg.py``).
 
 Semantics kept from the JAX solver:
 
 * stop when all ``0.5 ||r||^2 <= threshold`` (absolute, or relative to each
   row's ``0.5 ||b||^2``) or ``i == max_iterations``;
 * both curvature guards: ``gamma = 0`` when ``p.pA <= 1e-16``, and the
-  search direction restarts from ``r`` when ``p.pA < -1e-16`` (indefinite)
-  or the old ``r.r <= 1e-16``;
+  search direction restarts from ``z`` when ``p.pA < -1e-16`` (indefinite)
+  or the old ``r.z <= 1e-16``;
 * the association ``(p * new_rz) / rz``;
 * the exact-residual restart every ``max_steps_cycle`` iterations;
-* ``CGStats(steps, error=0.5 * rz, converged)``.
+* the preconditioner protocol ``apply(state, vec, mat) -> (z, r.z)``;
+* ``CGStats(steps, error=0.5 * rz, converged)``;
+* the backward pass is another CG solve on the same route:
+  ``db = A^{-1} dx`` (``v0 = 0``), ``dA = -solution^T db``, ``dv0 = 0`` and
+  no gradient to the preconditioner state (:class:`_CGDense`).
 
-``matvec_impl`` routes of the dense solver in this slice: ``"xla"`` (plain
-IEEE matmul), ``"pallas"`` (kernel B1 for every matvec) and
+``matvec_impl`` routes of the dense solver: ``"xla"`` (plain IEEE matmul),
+``"pallas"`` (kernel B1 for every matvec, under any preconditioner) and
 ``"pallas_resident"`` (kernel B2 for the whole solve, under the JAX
-package's eligibility rule, else the ``"xla"`` loop exactly as JAX falls
+package's eligibility rule — identity preconditioner, standard dot, no
+restart, absolute threshold — else the ``"xla"`` loop exactly as JAX falls
 back).  The loop of ``"xla"``/``"pallas"`` reads its stop rule on the host
 once per iteration; ``"pallas_resident"`` decides on the device and the
 call returns without a host read.
 
-:func:`cg_loop` takes the JAX signature's ``precond_apply, precond_state``
-pair; :func:`precond_apply_or_identity` with the state ``()`` is the
-identity, and with a :func:`spectral_precond_state` it is the stable
-low-rank :class:`SpectralPreconditioner` apply (the matrix-free solver's
-pivoted-Cholesky preconditioner).
+Preconditioners: :class:`EyePreconditioner`, :class:`BlockPreconditioner`,
+:class:`NystromPreconditioner`, :class:`SpectralPreconditioner`,
+:class:`CholPreconditioner` (a factor that is not finite falls back to
+``W = I``, as in JAX) and :func:`pivoted_cholesky_preconditioner`.
 
-Not in this slice, each raising ``NotImplementedError``: other
-``matvec_impl`` values (``"xla_high"``, ``"xla_bf16"``, ``"bf16_ir"``,
-``"bf16_ru"``), compensated dots, preconditioners of the dense solver,
-gradients through the solve (the custom backward pass) and chunked solves.
+Not ported yet, each raising ``NotImplementedError``: other ``matvec_impl``
+values (``"xla_high"``, ``"xla_bf16"``, ``"bf16_ir"``, ``"bf16_ru"``: the
+mixed-precision routes), compensated dots and chunked solves.
 """
 
 from __future__ import annotations
@@ -36,13 +40,25 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from cggp_tpu_torch.ops.linalg import pivoted_cholesky
 from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve
 from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec
 
 MATVEC_IMPLS = ("xla", "pallas", "pallas_resident")
 _JAX_ONLY_IMPLS = ("xla_high", "xla_bf16", "bf16_ir", "bf16_ru")
 _MIN_FLOAT = 1e-16
+
+
+class CGState(NamedTuple):
+    """Loop-carried state of :func:`cg_loop`."""
+
+    i: int  # iterations executed
+    v: torch.Tensor  # current solution, [m, n]
+    r: torch.Tensor  # residual, [m, n]
+    p: torch.Tensor  # search direction, [m, n]
+    rz: torch.Tensor  # preconditioned inner product r^T z, [m, 1]
 
 
 class CGStats(NamedTuple):
@@ -55,17 +71,96 @@ def _standard_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1, keepdim=True)
 
 
+def _compensated_dot_refused(dot: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"dot={dot!r}: compensated inner products arrive with a later slice of "
+        "the port (the CG solver family, ROADMAP Queue A item 7)")
+
+
+def _cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN where the factorization fails (as
+    ``jnp.linalg.cholesky`` gives), without a host read of the info flag."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info == 0)[..., None, None], chol, torch.full_like(chol, float("nan")))
+
+
+# ---------------------------------------------------------------------------
+# Preconditioners: ``apply(state, vec, mat) -> (z, r.z)`` and ``state``
+# ---------------------------------------------------------------------------
+
+
 class EyePreconditioner:
-    """Identity: ``z = r``, ``rz = ||r||^2`` — the only preconditioner of
-    the dense solver in this slice (state ``()``)."""
+    """Identity: ``z = r``, ``rz = ||r||^2`` (state ``()``)."""
 
     state: tuple = ()
 
     def __init__(self, dot: str = "standard"):
         if dot != "standard":
-            raise NotImplementedError(
-                f"dot={dot!r}: compensated inner products arrive with a later "
-                "slice of the port (the CG solver family)")
+            raise _compensated_dot_refused(dot)
+
+    @staticmethod
+    def apply(state, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        del state, mat
+        return vec, _standard_dot(vec, vec)
+
+    def __call__(self, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.apply(self.state, vec, mat)
+
+
+class BlockPreconditioner:
+    """Block-Jacobi: per-block Cholesky solves against the system matrix.
+
+    ``block_indices`` [num_blocks, block_size] must partition the index
+    range (each index in exactly one block); every block is factorized in
+    one batched call."""
+
+    def __init__(self, block_indices):
+        self.state = (torch.as_tensor(block_indices, dtype=torch.long),)
+
+    @staticmethod
+    def apply(state, vec: torch.Tensor, mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        (block_indices,) = state
+        idx = block_indices.to(vec.device)
+        a = mat[idx[:, :, None], idx[:, None, :]]  # [nb, bs, bs]
+        b = vec[:, idx].permute(1, 2, 0)  # [nb, bs, m]
+        blocks = torch.cholesky_solve(b, _cholesky_or_nan(a))  # [nb, bs, m]
+        m = vec.shape[0]
+        z = torch.zeros_like(vec)
+        z[:, idx.reshape(-1)] = blocks.permute(2, 0, 1).reshape(m, -1)
+        return z, _standard_dot(z, vec)
+
+    def __call__(self, vec: torch.Tensor, mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.apply(self.state, vec, mat)
+
+
+class NystromPreconditioner:
+    """Low-rank + diagonal Woodbury preconditioner: the exact inverse of
+    ``U U^T + diag(lam)`` for an [n, k] factor ``U``,
+
+        z^T = D^{-1} r^T - D^{-1} U (I_k + U^T D^{-1} U)^{-1} U^T D^{-1} r^T
+
+    with the [k, k] Cholesky taken once at construction."""
+
+    def __init__(self, factor: torch.Tensor, lam: torch.Tensor):
+        lam = lam.reshape(-1)
+        d_inv = 1.0 / lam
+        ud = factor * d_inv[:, None]  # D^{-1} U, [n, k]
+        k = factor.shape[-1]
+        small = torch.eye(k, dtype=factor.dtype, device=factor.device) + factor.T @ ud
+        self.state = (ud, _cholesky_or_nan(small), d_inv)
+
+    @staticmethod
+    def apply(state, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        del mat
+        ud, chol, d_inv = state
+        vd = vec * d_inv[None, :]
+        w = vec @ ud  # [m, k]
+        w = torch.cholesky_solve(w.T, chol).T
+        z = vd - w @ ud.T
+        return z, _standard_dot(z, vec)
+
+    def __call__(self, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.apply(self.state, vec, mat)
 
 
 class SpectralPreconditioner:
@@ -119,9 +214,49 @@ class SpectralPreconditioner:
         return self.apply(self.state, vec, mat)
 
 
+class CholPreconditioner:
+    """Exact-factor preconditioner: PCG becomes iterative refinement.
+
+    Factorizes ``A = matrix + diag(lam)`` once and keeps the triangular
+    inverse ``W = L^{-1}``; the apply is ``z = r W^T W``, ``rz = ||r W^T||^2``
+    (two [R, M] x [M, M] products), SPD by construction however rounding
+    degraded the factor.  A factorization that fails, or a ``W`` that is
+    not finite, gives ``W = I`` (plain CG): a training step is never
+    poisoned by a bad factor.  Decided on the device (``cholesky_ex`` and
+    ``torch.where``), with no host read.  The state is ``{"chol_w": W}``."""
+
+    def __init__(self, matrix: torch.Tensor, lam: torch.Tensor):
+        lam = lam.reshape(-1).to(matrix.dtype)
+        a = matrix + torch.diag(lam)
+        eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+        chol, info = torch.linalg.cholesky_ex(a)
+        w = torch.linalg.solve_triangular(chol, eye, upper=False)
+        ok = torch.logical_and(info == 0, torch.all(torch.isfinite(w)))
+        self.state = {"chol_w": torch.where(ok, w, eye)}
+
+    @staticmethod
+    def apply(state, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        del mat
+        w = state["chol_w"]
+        y = torch.matmul(vec, w.T)  # [R, M] = (L^{-1} r^T)^T
+        z = torch.matmul(y, w)
+        return z, torch.sum(torch.square(y), dim=-1, keepdim=True)
+
+    def __call__(self, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.apply(self.state, vec, mat)
+
+
 def spectral_precond_state(factor: torch.Tensor, lam: torch.Tensor):
     """The :class:`SpectralPreconditioner` state ``(q, weights, d_inv_sqrt)``."""
     return SpectralPreconditioner(factor, lam).state
+
+
+def pivoted_cholesky_preconditioner(matrix: torch.Tensor, lam: torch.Tensor,
+                                    rank: int) -> SpectralPreconditioner:
+    """Rank-``rank`` pivoted-Cholesky preconditioner for ``matrix +
+    diag(lam)``: the greedy largest-diagonal factor ``matrix ~= L L^T``
+    wrapped in the stable SPD apply of :class:`SpectralPreconditioner`."""
+    return SpectralPreconditioner(pivoted_cholesky(matrix, rank), lam)
 
 
 def precond_apply_or_identity(state, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor,
@@ -133,21 +268,20 @@ def precond_apply_or_identity(state, vec: torch.Tensor, mat=None) -> Tuple[torch
     return SpectralPreconditioner.apply(state, vec, mat)
 
 
-def _check_supported(matvec_impl: str, dot: str, preconditioner) -> None:
+def _check_supported(matvec_impl: str, dot: str) -> None:
     if matvec_impl not in MATVEC_IMPLS:
-        later = ("a later slice of the port (mixed-precision CG routes)"
-                 if matvec_impl in _JAX_ONLY_IMPLS else "no slice: unknown route")
+        later = ("a later slice of the port (mixed-precision CG routes, ROADMAP Queue A "
+                 "item 7)" if matvec_impl in _JAX_ONLY_IMPLS else "no slice: unknown route")
         raise NotImplementedError(
             f"matvec_impl={matvec_impl!r} is not ported; supported: {MATVEC_IMPLS}; "
             f"{later}")
     if dot != "standard":
-        raise NotImplementedError(
-            f"dot={dot!r}: compensated inner products arrive with a later slice "
-            "of the port (the CG solver family)")
-    if preconditioner is not None and not isinstance(preconditioner, EyePreconditioner):
-        raise NotImplementedError(
-            f"{type(preconditioner).__name__}: preconditioners arrive with the "
-            "training slice of the port; this slice solves unpreconditioned")
+        raise _compensated_dot_refused(dot)
+
+
+# ---------------------------------------------------------------------------
+# Core loop
+# ---------------------------------------------------------------------------
 
 
 def cg_loop(
@@ -160,11 +294,12 @@ def cg_loop(
     error_threshold: float,
     max_iterations: int,
     max_steps_cycle: int,
+    mat_for_precond: Optional[torch.Tensor] = None,
     relative_threshold: bool = False,
 ) -> Tuple[torch.Tensor, CGStats]:
     """Run PCG on ``v A = b`` (row convention); ``matvec(p)`` returns ``p @ A``
-    and ``precond_apply(precond_state, r, None)`` returns ``(z, r.z)``.
-    The stop rule reads the unpreconditioned residual ``r``."""
+    and ``precond_apply(precond_state, r, mat_for_precond)`` returns
+    ``(z, r.z)``.  The stop rule reads the unpreconditioned residual ``r``."""
     dtype, device = v0.dtype, v0.device
     zero = torch.zeros((), dtype=dtype, device=device)
     threshold = torch.tensor(error_threshold, dtype=dtype, device=device)
@@ -175,40 +310,47 @@ def cg_loop(
     def over_threshold(r):
         return bool(torch.any(0.5 * torch.sum(torch.square(r), dim=-1, keepdim=True) > threshold))
 
-    v = v0
     r = b - matvec(v0)
-    z, rz = precond_apply(precond_state, r, None)
-    p = z
-    i = 0
-    while i < max_iterations and over_threshold(r):
-        pa = matvec(p)
-        denom = _standard_dot(p, pa)
+    z, rz = precond_apply(precond_state, r, mat_for_precond)
+    state = CGState(0, v0, r, z, rz)
+    while state.i < max_iterations and over_threshold(state.r):
+        pa = matvec(state.p)
+        denom = _standard_dot(state.p, pa)
         indefinite = denom < -_MIN_FLOAT
-        gamma = torch.where(denom <= _MIN_FLOAT, zero, rz / denom)
-        v = v + gamma * p
-        reset = not never_restart and i % max_steps_cycle == max_steps_cycle - 1
-        r = b - matvec(v) if reset else r - gamma * pa
-        z, new_rz = precond_apply(precond_state, r, None)
+        gamma = torch.where(denom <= _MIN_FLOAT, zero, state.rz / denom)
+        v = state.v + gamma * state.p
+        reset = not never_restart and state.i % max_steps_cycle == max_steps_cycle - 1
+        r = b - matvec(v) if reset else state.r - gamma * pa
+        z, new_rz = precond_apply(precond_state, r, mat_for_precond)
         if reset:
             p = z
         else:
-            p = z + torch.where(indefinite | (rz <= _MIN_FLOAT), zero, p * new_rz / rz)
-        rz = new_rz
-        i += 1
-    final_r_sq = torch.sum(torch.square(r), dim=-1, keepdim=True)
+            p = z + torch.where(indefinite | (state.rz <= _MIN_FLOAT), zero,
+                                state.p * new_rz / state.rz)
+        state = CGState(state.i + 1, v, r, p, new_rz)
+    final_r_sq = torch.sum(torch.square(state.r), dim=-1, keepdim=True)
     converged = torch.logical_not(torch.any(0.5 * final_r_sq > threshold))
-    steps = torch.tensor(i, dtype=torch.int32, device=device)
-    return v, CGStats(steps=steps, error=0.5 * rz, converged=converged)
+    steps = torch.tensor(state.i, dtype=torch.int32, device=device)
+    return state.v, CGStats(steps=steps, error=0.5 * state.rz, converged=converged)
 
 
-def _cg_dense_impl(error_threshold: float, max_iterations: int, max_steps_cycle: int,
-                   matvec_impl: str, relative: bool, matrix: torch.Tensor,
-                   rhs: torch.Tensor, v0: torch.Tensor) -> Tuple[torch.Tensor, CGStats]:
+# ---------------------------------------------------------------------------
+# Dense-matrix CG with a hand-written backward pass
+# ---------------------------------------------------------------------------
+
+
+def _cg_dense_impl(precond_apply: Callable, error_threshold: float, max_iterations: int,
+                   max_steps_cycle: int, dot_name: str, matvec_impl: str, relative: bool,
+                   matrix: torch.Tensor, rhs: torch.Tensor, v0: torch.Tensor,
+                   precond_state) -> Tuple[torch.Tensor, CGStats]:
+    _check_supported(matvec_impl, dot_name)
     if matvec_impl == "pallas_resident":
-        # The JAX eligibility rule (identity preconditioner and standard dot
-        # hold for every solve this slice accepts): no restart and an
+        # The JAX eligibility rule: the whole solve runs in B2 only for the
+        # identity preconditioner, the standard dot, no restart and an
         # absolute threshold; anything else takes the "xla" loop, as in JAX.
-        if max_steps_cycle > max_iterations and not relative:
+        eligible = (precond_state == () and dot_name == "standard"
+                    and max_steps_cycle > max_iterations and not relative)
+        if eligible:
             # v0 enters through the shifted system (v0 + d) A = b.
             shifted_rhs = rhs - torch.matmul(v0, matrix)
             delta, steps = pallas_cg_solve(
@@ -236,10 +378,38 @@ def _cg_dense_impl(error_threshold: float, max_iterations: int, max_steps_cycle:
         def matvec(q):
             return torch.matmul(q, matrix)
 
-    return cg_loop(matvec, precond_apply_or_identity, (), rhs, v0,
-                   error_threshold=error_threshold,
-                   max_iterations=max_iterations, max_steps_cycle=max_steps_cycle,
+    return cg_loop(matvec, precond_apply, precond_state, rhs, v0,
+                   error_threshold=error_threshold, max_iterations=max_iterations,
+                   max_steps_cycle=max_steps_cycle, mat_for_precond=matrix,
                    relative_threshold=relative)
+
+
+class _CGDense(torch.autograd.Function):
+    """``_cg_dense_impl`` with JAX's custom backward pass: another CG solve
+    on the same route (B2 or B1 run again), ``db = A^{-1} dx`` from ``v0 =
+    0`` and ``dA = -solution^T db`` (not symmetrised, as in JAX).  ``v0`` and
+    the preconditioner state get no gradient; the stats are not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, config, matrix, rhs, v0, precond_state):
+        precond_apply = config[0]
+        solution, stats = _cg_dense_impl(precond_apply, *config[1:], matrix, rhs, v0,
+                                         precond_state)
+        ctx.config = config
+        ctx.precond_state = precond_state
+        ctx.save_for_backward(matrix, solution)
+        ctx.mark_non_differentiable(stats.steps, stats.error, stats.converged)
+        return solution, stats.steps, stats.error, stats.converged
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dx, *_stat_grads):
+        matrix, solution = ctx.saved_tensors
+        db, _ = _cg_dense_impl(ctx.config[0], *ctx.config[1:], matrix, dx,
+                               torch.zeros_like(dx), ctx.precond_state)
+        da = -solution.T @ db if ctx.needs_input_grad[1] else None
+        return None, da, db, None, None
 
 
 def conjugate_gradient(
@@ -247,7 +417,7 @@ def conjugate_gradient(
     rhs: torch.Tensor,
     initial_solution: torch.Tensor,
     error_threshold: float,
-    preconditioner: Optional[EyePreconditioner] = None,
+    preconditioner=None,
     max_iterations: Optional[int] = None,
     max_steps_cycle: int = 100,
     dot: str = "standard",
@@ -261,19 +431,35 @@ def conjugate_gradient(
         rhs: right-hand sides as rows [m, n].
         initial_solution: initial iterate [m, n].
         error_threshold: stop when all ``0.5 ||r_i||^2 <= threshold``.
+        preconditioner: an object with ``.apply(state, vec, mat)`` and
+            ``.state``; None is the identity.
     Returns:
-        ``(solution [m, n], CGStats(steps, error, converged))``.
+        ``(solution [m, n], CGStats(steps, error, converged))``, the
+        solution differentiable with respect to ``matrix`` and ``rhs``
+        through :class:`_CGDense`; the stats carry no gradient.
     """
-    _check_supported(matvec_impl, dot, preconditioner)
-    if torch.is_grad_enabled() and (matrix.requires_grad or rhs.requires_grad
-                                    or initial_solution.requires_grad):
-        raise NotImplementedError(
-            "gradients through the CG solve (its custom backward pass) arrive "
-            "with the training slice of the port; call under torch.no_grad()")
+    _check_supported(matvec_impl, dot)
+    if preconditioner is None:
+        preconditioner = EyePreconditioner()
+    if not (hasattr(preconditioner, "apply") and hasattr(preconditioner, "state")):
+        raise TypeError(f"{type(preconditioner).__name__} is not a preconditioner: it needs "
+                        "apply(state, vec, mat) and state")
     if max_iterations is None:
         max_iterations = matrix.shape[-1]
-    return _cg_dense_impl(float(error_threshold), int(max_iterations), int(max_steps_cycle),
-                          matvec_impl, bool(relative_threshold), matrix, rhs, initial_solution)
+    config = _cg_config(preconditioner, error_threshold, max_iterations, max_steps_cycle, dot,
+                        matvec_impl, relative_threshold)
+    solution, steps, error, converged = _CGDense.apply(config, matrix, rhs, initial_solution,
+                                                       preconditioner.state)
+    return solution, CGStats(steps=steps, error=error, converged=converged)
+
+
+def _cg_config(preconditioner, error_threshold, max_iterations, max_steps_cycle, dot,
+               matvec_impl, relative_threshold) -> tuple:
+    """A solve's static configuration, as :class:`_CGDense` and the log-det
+    estimators take it: ``(apply, threshold, max_iterations,
+    max_steps_cycle, dot, matvec_impl, relative)``."""
+    return (preconditioner.apply, float(error_threshold), int(max_iterations),
+            int(max_steps_cycle), dot, matvec_impl, bool(relative_threshold))
 
 
 class ConjugateGradient:
@@ -287,14 +473,14 @@ class ConjugateGradient:
     def __init__(
         self,
         error_threshold: float,
-        preconditioner: Optional[EyePreconditioner] = None,
+        preconditioner=None,
         max_iterations: Optional[int] = None,
         max_steps_cycle: Optional[int] = None,
         dot: str = "standard",
         matvec_impl: str = "xla",
         relative_threshold: bool = False,
     ):
-        _check_supported(matvec_impl, dot, preconditioner)
+        _check_supported(matvec_impl, dot)
         self.error_threshold = error_threshold
         self.preconditioner = preconditioner if preconditioner is not None else EyePreconditioner()
         self.max_iterations = max_iterations
@@ -303,19 +489,23 @@ class ConjugateGradient:
         self.matvec_impl = matvec_impl
         self.relative_threshold = relative_threshold
 
+    def limits(self, n: int) -> Tuple[int, int]:
+        """``(max_iterations, max_steps_cycle)`` for an [n, n] system: ``n``
+        and ``max_iterations + 1`` (never restart inside the run) unless
+        set."""
+        max_iterations = self.max_iterations if self.max_iterations is not None else n
+        max_steps_cycle = (self.max_steps_cycle if self.max_steps_cycle is not None
+                           else max_iterations + 1)
+        return max_iterations, max_steps_cycle
+
     def solve_with_stats(
         self, matrix: torch.Tensor, rhs: torch.Tensor,
         initial_solution: Optional[torch.Tensor] = None,
-        preconditioner: Optional[EyePreconditioner] = None,
+        preconditioner=None,
     ) -> Tuple[torch.Tensor, CGStats]:
         rhs_t = rhs.T
         v0 = torch.zeros_like(rhs_t) if initial_solution is None else initial_solution.T
-        max_iterations = self.max_iterations
-        if max_iterations is None:
-            max_iterations = matrix.shape[-1]
-        max_steps_cycle = self.max_steps_cycle
-        if max_steps_cycle is None:
-            max_steps_cycle = max_iterations + 1  # never restart inside the run
+        max_iterations, max_steps_cycle = self.limits(matrix.shape[-1])
         solution, stats = conjugate_gradient(
             matrix, rhs_t, v0, self.error_threshold,
             preconditioner=preconditioner or self.preconditioner,
@@ -327,7 +517,7 @@ class ConjugateGradient:
 
     def __call__(self, matrix: torch.Tensor, rhs: torch.Tensor,
                  initial_solution: Optional[torch.Tensor] = None,
-                 preconditioner: Optional[EyePreconditioner] = None) -> torch.Tensor:
+                 preconditioner=None) -> torch.Tensor:
         solution, _stats = self.solve_with_stats(matrix, rhs, initial_solution,
                                                  preconditioner=preconditioner)
         return solution

@@ -11,7 +11,7 @@ of ``cggp_tpu/ops/cg_implicit.py``, forward solve).
 
 Gradients through the solve (the JAX custom backward: a second
 matrix-free solve plus one VJP of the blocked matvec) arrive with the
-training slice; :func:`make_implicit_cg`'s solve raises
+matrix-free training slice; :func:`make_implicit_cg`'s solve raises
 ``NotImplementedError`` when asked to differentiate.
 """
 
@@ -148,7 +148,7 @@ def make_implicit_cg(kernel: Kernel, error_threshold: float, max_iterations: int
         if torch.is_grad_enabled() and _requires_grad(kp, z, lam, rhs, precond_state):
             raise NotImplementedError(
                 "gradients through the matrix-free CG solve (its custom backward "
-                "pass) arrive with the training slice of the port; call under "
+                "pass) arrive with the matrix-free training slice of the port; call under "
                 "torch.no_grad()")
         if mask is not None:
             mask = mask.reshape(-1)

@@ -1,0 +1,243 @@
+"""Log-determinant estimators built on CG (port of ``cggp_tpu/ops/logdet.py``,
+the dense estimators).
+
+* :func:`eval_logdet` — the reference semantics: the *value* is the
+  constant 0 and only the gradient is defined, ``d logdet / dA = A^{-1}``,
+  by CG against the identity or by a Rademacher/Hutchinson estimate.
+* :func:`eval_logdet_from_solves` — the same Hutchinson gradient from probe
+  solutions the caller already has (the fused ELBO's): no extra CG solve.
+* :func:`slq_logdet` — a stochastic Lanczos quadrature *value* with the same
+  CG-probe gradient.
+* :func:`lanczos_extremal_eigs` — extremal Ritz values, for the
+  chol-or-CG conditioning policies.
+
+Randomness comes from a ``torch.Generator`` where JAX takes a PRNG key;
+:func:`rademacher` draws on the generator's device.  Callers look it up by
+name when they run, so tests can substitute the JAX package's probes.
+
+Not ported yet: the matrix-free estimators (``make_matfree_*``, the row
+Lanczos) and the LOVE serving cache.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cggp_tpu_torch.ops.cg import ConjugateGradient, _cg_config, _cg_dense_impl
+
+
+def rademacher(generator: torch.Generator, shape, dtype: torch.dtype) -> torch.Tensor:
+    """+-1 probes in ``dtype``, drawn from ``generator`` on its device."""
+    bits = torch.randint(0, 2, tuple(shape), generator=generator, device=generator.device)
+    return (2 * bits - 1).to(dtype)
+
+
+def _logdet_grad(df, matrix, probes, precond_apply, precond_state, threshold,
+                 max_iterations, max_steps_cycle, dot_name,
+                 matvec_impl="xla", relative=False):
+    """Shared backward rule: ``df * A^{-1}`` (dense, or probe-estimated), with
+    the caller's solver configuration."""
+    n = matrix.shape[-1]
+    if probes is None:
+        eye = torch.eye(n, dtype=matrix.dtype, device=matrix.device)
+        inv, _ = _cg_dense_impl(precond_apply, threshold, max_iterations, max_steps_cycle,
+                                dot_name, matvec_impl, relative, matrix, eye,
+                                torch.zeros_like(eye), precond_state)
+        # A row-convention solve of the identity is A^{-T}; transposed as in
+        # the reference, though A is symmetric.
+        return df * inv.T
+    num_probes = probes.shape[-1]
+    rv = df * probes  # [n, P]
+    lv, _ = _cg_dense_impl(precond_apply, threshold, max_iterations, max_steps_cycle,
+                           dot_name, matvec_impl, relative, matrix, probes.T,
+                           torch.zeros_like(probes.T), precond_state)  # [P, n]
+    return (lv.T @ rv.T) / num_probes
+
+
+class _EvalLogdet(torch.autograd.Function):
+    """Value 0; gradient :func:`_logdet_grad` (identity or probes)."""
+
+    @staticmethod
+    def forward(ctx, config, use_probes, matrix, probes, precond_state):
+        ctx.config = config
+        ctx.use_probes = use_probes
+        ctx.precond_state = precond_state
+        ctx.save_for_backward(matrix, probes)
+        return torch.zeros((), dtype=matrix.dtype, device=matrix.device)
+
+    @staticmethod
+    def backward(ctx, df):
+        matrix, probes = ctx.saved_tensors
+        precond_apply, threshold, max_iterations, max_steps_cycle, dot_name, \
+            matvec_impl, relative = ctx.config
+        da = _logdet_grad(df, matrix, probes if ctx.use_probes else None, precond_apply,
+                          ctx.precond_state, threshold, max_iterations, max_steps_cycle,
+                          dot_name, matvec_impl, relative)
+        return None, None, da, None, None
+
+
+def _cg_static(cg: ConjugateGradient, n: int, preconditioner=None):
+    """The estimators' solver configuration: ``(apply, threshold,
+    max_iterations, max_steps_cycle, dot, matvec_impl, relative, state)``.
+    ``preconditioner`` overrides the facade's own, so the gradient's solves
+    run under the training step's preconditioner."""
+    pre = preconditioner if preconditioner is not None else cg.preconditioner
+    return (*_cg_config(pre, cg.error_threshold, *cg.limits(n), cg.dot, cg.matvec_impl,
+                        cg.relative_threshold), pre.state)
+
+
+def eval_logdet(matrix: torch.Tensor, cg: ConjugateGradient, num_probes: Optional[int] = None,
+                key: Optional[torch.Generator] = None, preconditioner=None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Zero-valued log-det whose gradient is ``A^{-1}`` by CG: against the
+    identity with ``num_probes=None``, else from ``num_probes`` Rademacher
+    probes drawn from ``key``.  ``mask`` [n] zeroes probe entries at the pad
+    rows of a capacity-padded system (probes only)."""
+    n = matrix.shape[-1]
+    *config, state = _cg_static(cg, n, preconditioner)
+    if num_probes is None:
+        if mask is not None:
+            raise ValueError("eval_logdet(mask=...) requires num_probes — the "
+                             "identity-solve gradient would re-couple the pad rows")
+        probes = torch.zeros((n, 1), dtype=matrix.dtype, device=matrix.device)  # unused
+        use_probes = False
+    else:
+        if key is None:
+            raise ValueError("eval_logdet with num_probes requires an explicit generator")
+        probes = rademacher(key, (n, num_probes), matrix.dtype)
+        if mask is not None:
+            probes = probes * mask[:, None]
+        use_probes = True
+    return _EvalLogdet.apply(tuple(config), use_probes, matrix, probes, state)
+
+
+class _EvalLogdetFromSolves(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, matrix, probes, solved_probes):
+        ctx.save_for_backward(probes, solved_probes)
+        return torch.zeros((), dtype=probes.dtype, device=probes.device)
+
+    @staticmethod
+    def backward(ctx, df):
+        probes, solved_probes = ctx.saved_tensors
+        da = (df / probes.shape[-1]) * (solved_probes @ probes.T)
+        return da, None, None
+
+
+def eval_logdet_from_solves(matrix: torch.Tensor, probes: torch.Tensor,
+                            solved_probes: torch.Tensor) -> torch.Tensor:
+    """Zero-valued log-det whose gradient reuses precomputed probe solves
+    ``solved_probes = A^{-1} probes`` ([n, P] columns, taken as constants):
+    ``dA = df * solved_probes probes^T / P``, with zero extra CG loops."""
+    return _EvalLogdetFromSolves.apply(matrix, probes, solved_probes.detach())
+
+
+# ---------------------------------------------------------------------------
+# Stochastic Lanczos quadrature
+# ---------------------------------------------------------------------------
+
+
+def _lanczos_tridiag(matrix: torch.Tensor, v0: torch.Tensor, num_iters: int):
+    """Lanczos with full reorthogonalisation (two passes); returns
+    ``(alphas [k], betas [k - 1])``."""
+    n = matrix.shape[-1]
+    v0 = v0 / torch.linalg.vector_norm(v0)
+    basis = torch.zeros((num_iters, n), dtype=matrix.dtype, device=matrix.device)
+    basis[0] = v0
+    alphas = torch.zeros((num_iters,), dtype=matrix.dtype, device=matrix.device)
+    betas = torch.zeros((num_iters,), dtype=matrix.dtype, device=matrix.device)
+    for i in range(num_iters):
+        v = basis[i]
+        w = matrix @ v
+        alpha = torch.dot(w, v)
+        w = w - alpha * v
+        for _ in range(2):
+            w = w - basis.T @ (basis @ w)
+        beta = torch.linalg.vector_norm(w)
+        safe_beta = torch.where(beta > 0, beta, torch.ones_like(beta))
+        if i + 1 < num_iters:
+            basis[i + 1] = torch.where(beta > 0, w / safe_beta, torch.zeros_like(w))
+        alphas[i] = alpha
+        betas[i] = beta
+    return alphas, betas[:-1]
+
+
+def _tridiag(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
+    return torch.diag(alphas) + torch.diag(betas, 1) + torch.diag(betas, -1)
+
+
+def _slq_value(matrix: torch.Tensor, probes: torch.Tensor, lanczos_iters: int) -> torch.Tensor:
+    """SLQ estimate of ``logdet(A)`` from probes [n, P], each probe's
+    quadrature weighted by its own ``||z||^2`` (``n`` for full Rademacher
+    probes; masked probes target the real submatrix)."""
+    tiny = torch.finfo(matrix.dtype).tiny
+    per_probe = []
+    for j in range(probes.shape[-1]):
+        z = probes[:, j]
+        alphas, betas = _lanczos_tridiag(matrix, z, lanczos_iters)
+        evals, evecs = torch.linalg.eigh(_tridiag(alphas, betas))
+        evals = torch.clamp(evals, min=tiny)
+        weights = torch.square(evecs[0, :])
+        per_probe.append(torch.sum(z * z) * torch.sum(weights * torch.log(evals)))
+    return torch.mean(torch.stack(per_probe))
+
+
+class _SLQLogdet(torch.autograd.Function):
+    """Value :func:`_slq_value`; gradient the CG-probe estimate."""
+
+    @staticmethod
+    def forward(ctx, config, lanczos_iters, matrix, probes, precond_state):
+        ctx.config = config
+        ctx.precond_state = precond_state
+        ctx.save_for_backward(matrix, probes)
+        return _slq_value(matrix, probes, lanczos_iters)
+
+    @staticmethod
+    def backward(ctx, df):
+        matrix, probes = ctx.saved_tensors
+        precond_apply, threshold, max_iterations, max_steps_cycle, dot_name, \
+            matvec_impl, relative = ctx.config
+        da = _logdet_grad(df, matrix, probes, precond_apply, ctx.precond_state, threshold,
+                          max_iterations, max_steps_cycle, dot_name, matvec_impl, relative)
+        return None, None, da, None, None
+
+
+def slq_logdet(matrix: torch.Tensor, cg: ConjugateGradient, num_probes: int,
+               key: torch.Generator, lanczos_iters: int = 25, preconditioner=None,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stochastic-Lanczos-quadrature log-det value with the CG-probe
+    gradient of :func:`eval_logdet`.  ``mask`` [n] (1 real / 0 pad) zeroes
+    probe entries at pad rows, so value and gradient target the real
+    submatrix of a capacity-padded system."""
+    n = matrix.shape[-1]
+    *config, state = _cg_static(cg, n, preconditioner)
+    probes = rademacher(key, (n, num_probes), matrix.dtype)
+    if mask is not None:
+        probes = probes * mask[:, None]
+    return _SLQLogdet.apply(tuple(config), int(lanczos_iters), matrix, probes, state)
+
+
+def lanczos_extremal_eigs(matrix: torch.Tensor, key: torch.Generator, num_iters: int = 64):
+    """Estimates ``(eig_min, eig_max)`` of a symmetric PSD matrix from the
+    extremal Ritz values of a ``num_iters``-step Lanczos run from a normal
+    start vector drawn from ``key``: ``eig_min`` over-, ``eig_max``
+    under-estimated, percent-level after a few dozen steps on kernel
+    spectra.  Returns two 0-d tensors on the matrix's device."""
+    n = matrix.shape[-1]
+    v0 = torch.randn((n,), generator=key, device=key.device, dtype=matrix.dtype)
+    alphas, betas = _lanczos_tridiag(matrix, v0, num_iters)
+    return _ritz_extremes(alphas, betas)
+
+
+def _ritz_extremes(alphas: torch.Tensor, betas: torch.Tensor):
+    """``(eig_min, eig_max)`` Ritz estimates from Lanczos (alphas [k], betas
+    [k - 1]).  Rows after an early termination (beta == 0) are filled with a
+    Rayleigh quotient on the diagonal, so they are never extremal."""
+    bad = torch.cat([torch.zeros((1,), dtype=torch.bool, device=betas.device), betas <= 0.0])
+    used = torch.cumsum(bad.to(torch.int32), dim=0) == 0
+    diag = torch.where(used, alphas, alphas[0])
+    off = torch.where(used[1:], betas, torch.zeros_like(betas))
+    evs = torch.linalg.eigvalsh(_tridiag(diag, off))
+    return evs[0], evs[-1]

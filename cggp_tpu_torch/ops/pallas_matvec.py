@@ -11,9 +11,10 @@ JAX wrapper casts to float32 inside, the port's CG route does it outside).
 Arithmetic.  Above 8 rows the kernel computes in 3xTF32 on the tensor
 cores: each operand is split into TF32 halves ``hi + lo`` and each product
 taken as ``lo hi + hi lo + hi hi``, every 32-deep stage summed from zero on
-the tensor cores and added to the running sum in IEEE fp32, which keeps
-fp32-level error (``csrc/mma_3xtf32.cuh``).  Up to 8 rows it is an IEEE
-fp32 FMA GEMV.  The plain version computes in IEEE fp32 (TF32 stays off).
+the tensor cores in two parts, each added to the running sum in IEEE fp32,
+which keeps fp32-level error (``csrc/mma_3xtf32.cuh``).  Up to 8 rows it is
+an IEEE fp32 FMA GEMV.  The plain version computes in IEEE fp32 (TF32 stays
+off).
 :func:`matmul_3xtf32_emulated` repeats the 3xTF32 arithmetic in plain
 torch for the tests and the card's smoke run; the main path never calls it.
 """
@@ -72,29 +73,47 @@ def split_tf32(x: torch.Tensor):
     return hi, tf32_round(x.to(torch.float32) - hi)
 
 
-def matmul_3xtf32_emulated(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 to float32, truncated (rounded toward zero)."""
+    f = x.to(torch.float32)
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def matmul_3xtf32_emulated(a: torch.Tensor, b: torch.Tensor,
+                           truncate: bool = False) -> torch.Tensor:
     """``a [R, K] @ b [K, N]`` as the 3xTF32 kernels compute it, in plain
-    torch: the three TF32 products ``lo hi + hi lo + hi hi`` of each 32-deep
-    stage summed exactly (float64) and rounded to float32 once, then the
-    stages added in order in IEEE float32.  The tensor cores round a stage's
-    sum their own way (not to nearest); this models it as round to nearest."""
+    torch.  Each 32-deep stage is summed in the two parts of
+    ``csrc/mma_3xtf32.cuh``: the eight small products ``lo hi + hi lo`` of
+    its four 8-deep steps with the first two steps' ``hi hi``, then the last
+    two steps' ``hi hi``.  Inside a part each large product is added to the
+    part's sum and the result rounded to float32, to nearest, or toward
+    zero with ``truncate`` as the tensor cores do; the parts are added to
+    the running sum in order in IEEE float32.  Not modelled: the roundings
+    after each small product (they go first, while the part's sum is
+    small)."""
     rows, depth = a.shape
     cols = b.shape[1]
     pad = (-depth) % TF32_STAGE
     stages = (depth + pad) // TF32_STAGE
+    steps = TF32_STAGE // 8
     a_hi, a_lo = (F.pad(t, (0, pad)).double() for t in split_tf32(a))
-    b_hi, b_lo = (F.pad(t, (0, 0, 0, pad)).double().reshape(stages, TF32_STAGE, cols)
-                  for t in split_tf32(b))
+    b_hi, b_lo = (F.pad(t, (0, 0, 0, pad)).double() for t in split_tf32(b))
+    to_float = round_toward_zero if truncate else (lambda x: x.to(torch.float32))
     out = torch.empty((rows, cols), dtype=torch.float32, device=a.device)
-    block = max(1, (1 << 24) // max(1, stages * cols))  # rows per pass: <= 128 MB of float64
+    block = max(1, (1 << 24) // max(1, stages * steps * cols))  # rows per pass: <= 128 MB
     for r0 in range(0, rows, block):
-        def by_stage(t):
-            return t[r0:r0 + block].reshape(-1, stages, TF32_STAGE).transpose(0, 1)
-        stage_sums = (torch.bmm(by_stage(a_lo), b_hi) + torch.bmm(by_stage(a_hi), b_lo)
-                      + torch.bmm(by_stage(a_hi), b_hi)).float()  # [stages, rows, cols]
-        acc = torch.zeros((min(block, rows - r0), cols), dtype=torch.float32, device=a.device)
+        def split(t, width):  # [block, K] -> [K / width, block, width]
+            return t[r0:r0 + block].reshape(-1, t.shape[1] // width, width).transpose(0, 1)
+        small = (torch.bmm(split(a_lo, TF32_STAGE), b_hi.reshape(stages, TF32_STAGE, cols))
+                 + torch.bmm(split(a_hi, TF32_STAGE), b_lo.reshape(stages, TF32_STAGE, cols)))
+        large = torch.bmm(split(a_hi, 8), b_hi.reshape(stages * steps, 8, cols))
+        large = large.reshape(stages, steps, -1, cols)
+        first = to_float(to_float(small + large[:, 0]).double() + large[:, 1])
+        second = to_float(to_float(large[:, 2]).double() + large[:, 3])
+        acc = torch.zeros((first.shape[1], cols), dtype=torch.float32, device=a.device)
         for k in range(stages):
-            acc = acc + stage_sums[k]
+            acc = acc + first[k]
+            acc = acc + second[k]
         out[r0:r0 + block] = acc
     return out
 

@@ -27,23 +27,43 @@ Phases, each printing one JSON line of its own:
               4 x 8192 query points) through each kernel, with the launch
               counts set to 0 just before and read just after, and results
               held against the Cholesky posterior and the ``"xla"`` route.
-7. ``setup_implicit``  the matrix-free workload: the committed cover-tree
+7. ``setup_train`` / ``reference_train``  the dense training workload: the
+              same data and selection, batches of 2048 training points
+              (indices from a seeded CPU generator, drawn up front), probes
+              from a seeded generator on the card; the first step's loss and
+              gradients in fp64 and on the fp32 ``"xla"`` loop.
+   ``train_pallas_resident`` / ``train_pallas_chol`` / ``train_xla``  the
+              port's training step (``CGGP.training_loss`` + ``make_adam_step``
+              at adam(0.01)): B2 for both CG solves of a step (absolute 1e-8,
+              no preconditioner), B1 for every matvec under the exact-factor
+              preconditioner (relative 1e-5, ``bench.py``'s production solve),
+              and the plain loop.  Each: the first step against fp64 (the
+              relative gap of the loss and of each gradient at most 2x the
+              fp32 ``"xla"`` route's), 3 warm-up steps, 20 timed steps with the
+              launch counts of B1, B2 and B3 set to 0 just before and read just
+              after (2 B2 launches a step; B1 launches = the solves' steps + 1;
+              no B3 launch), every loss and parameter finite; B2 at the
+              training shape (a step's forward and backward blocks) and B1 at
+              R = 2059 against their plain versions and fp64, timed.
+   ``check_train_jax``  B2's first-step forward and backward steps within
+              max(3, 5 %) of the JAX package's (``JAX_TRAIN_STEP0``).
+8. ``setup_implicit``  the matrix-free workload: the committed cover-tree
               selection at resolution 0.15 (M = 9576, padded to 10240 with
               ``block=2048``), ``ImplicitCGGP`` with pivoted-Cholesky
               preconditioning (rank 128) at relative threshold 1e-5.
-8. ``B3``     ``kuu_matvec`` against its plain version and fp64 at M = 10240
+9. ``B3``     ``kuu_matvec`` against its plain version and fp64 at M = 10240
               (real pads and mask) for R = 1 and 8192 (at 8192 the kernel's
               error from fp64 at most 2x the plain version's), ``gram_matvec``
               at N = 8192, M = 10240, R = 1, and ragged cases of each kernel
               family on both launch shapes; timed in turns with the plain
               version.
-9. ``reference_implicit``  the fp64 Cholesky posterior over the real points.
-10. ``serve_implicit_pallas`` / ``serve_implicit_xla``  the matrix-free
+10. ``reference_implicit``  the fp64 Cholesky posterior over the real points.
+11. ``serve_implicit_pallas`` / ``serve_implicit_xla``  the matrix-free
               serving path (``posterior(solver="cg")`` + ``predict_in_batches``,
               2 x 8192 query points) through B3 and through the plain blocked
               route, with the B3 launch counts set to 0 just before and read
               just after: every CG matvec must have gone through B3.
-11. ``check_implicit_tight_{pallas,xla}``  one 8192-row batch per route at relative
+12. ``check_implicit_tight_{pallas,xla}``  one 8192-row batch per route at relative
               threshold 1e-9, held tightly against the fp64 posterior.
 
 Bounds (``bound_parts``): the least time of an fp32-accurate result, the
@@ -63,6 +83,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import faulthandler
+import hashlib
 import json
 import math
 import os
@@ -131,6 +152,32 @@ B2_R1_BEFORE_MS = 28.48
 # the matrix-free query points (x_test[:512]), on the CPU with jax 0.9.0:
 # max abs gap of the mean and of the variance.
 JAX_IMPLICIT_GAP_512 = {"mean": 7.081343216427172e-3, "var": 9.075545169006105e-4}
+
+# The dense training workload: the e2e data and selection above, Matern32
+# at init parameters, num_probes=5, batches of 2048 points, adam(0.01).
+TRAIN_BATCH = 2048
+TRAIN_PROBES = 5
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 20
+TRAIN_LR = 0.01
+TRAIN_BATCH_SEED = 0  # batch indices: a CPU generator, drawn for every step up front
+TRAIN_PROBE_SEED = 1  # the probes: a generator on the card, reseeded for each phase
+# bench.py's production training solve, with B1 in place of "xla_high":
+# relative threshold 1e-5 under the exact-factor preconditioner.
+TRAIN_CHOL_THRESHOLD = 1e-5
+# The JAX package's fp32 values for the first training step of the
+# train_pallas_resident configuration (absolute threshold 1e-8, no
+# preconditioner, max_iterations = M), on the CPU with jax 0.9.0, with
+# rademacher patched to return this script's probes (their sha256 below,
+# written to chiprun_out/train_step0.npz with the batch's indices) and the
+# jitted "xla" loop at Precision.HIGHEST: the loss, the gradient norms of the
+# trainable parameters and the steps of the forward and backward CG solves.
+JAX_TRAIN_STEP0 = {
+    "probes_sha256": "e34b41de641856fc20e63cd12d4f5c8b69980b0996d4c05d58cba5f8811a1f04",
+    "loss": -12601.994140625,
+    "grad_norms": {"kernel/variance": 18141.625, "kernel/lengthscales": 29861.91015625,
+                   "likelihood/variance": 89475.7890625},
+    "cg_steps": [331, 371], "converged": [True, True]}
 
 _T0 = time.monotonic()
 
@@ -339,6 +386,69 @@ def record_solves(model):
     return stats
 
 
+def b2_bound(rows: int, m: int, steps: int, plan):
+    """bound_parts of one B2 solve of ``steps`` steps, counting this design's
+    bytes (csrc/pallas_cg.cu), each once: A and b read, v written, and per
+    step on the tiled path p read and pA written by the product, p, r, pA, v
+    read and v, r, p written by the row pass (9 R M words); on the small-R
+    path r written and read and each block's two partial dots.  Operations:
+    per step the [R, M] x [M, M] product (3xTF32 on the tiled path, fp32 FMA
+    on the small-R path) plus ~11 R M for dots and updates."""
+    tiled = plan["path"] == "tiled"
+    per_step_bytes = 4.0 * (9 * rows * m if tiled else 2 * rows * m + 4 * plan["grid"] * rows)
+    bound = bound_parts(4.0 * (m * m + 2 * rows * m) + steps * per_step_bytes,
+                        steps * (2.0 * rows * m * m + 11.0 * rows * m),
+                        steps * 2.0 * rows * m * m if tiled else 0.0)
+    return bound, per_step_bytes
+
+
+def record_dense_solves(cg_module):
+    """Wrap the dense CG's ``_cg_dense_impl`` (forward and backward solves
+    alike) so every solve's system, right-hand side and CGStats are kept for
+    reading after the timed window; returns the list and an undo."""
+    solves = []
+    impl = cg_module._cg_dense_impl
+
+    def recording(*args):
+        solution, stats = impl(*args)
+        solves.append({"matrix": args[7].detach(), "rhs": args[8].detach(), "stats": stats})
+        return solution, stats
+
+    cg_module._cg_dense_impl = recording
+
+    def undo():
+        cg_module._cg_dense_impl = impl
+
+    return solves, undo
+
+
+TRAINABLE = ("kernel/variance", "kernel/lengthscales", "likelihood/variance")
+
+
+def loss_and_grads(model, params, batch, generator):
+    """The training loss and the gradients of the trainable parameters."""
+    live = {**params, "kernel": {k: v.detach().clone().requires_grad_()
+                                 for k, v in params["kernel"].items()},
+            "likelihood": {k: v.detach().clone().requires_grad_()
+                           for k, v in params["likelihood"].items()}}
+    loss = model.training_loss(live, batch, generator)
+    leaves = [live["kernel"]["variance"], live["kernel"]["lengthscales"],
+              live["likelihood"]["variance"]]
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), dict(zip(TRAINABLE, (g.detach() for g in grads)))
+
+
+def relative_gaps(loss, grads, ref_loss, ref_grads):
+    """Relative gap of the loss and of each gradient (norm of the difference
+    over the norm of the reference) from a float64 reference."""
+    out = {"loss": float(abs(loss.double() - ref_loss) / abs(ref_loss))}
+    for name in TRAINABLE:
+        ref = ref_grads[name]
+        out[name] = float(torch.linalg.vector_norm(grads[name].double() - ref)
+                          / torch.linalg.vector_norm(ref))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -355,7 +465,10 @@ def main() -> int:
                                               pallas_cg_solve_plain, pallas_cg_sync_floor)
     from cggp_tpu_torch.ops.pallas_matvec import (matmul_3xtf32_emulated, pallas_matvec,
                                                   pallas_matvec_plain)
-    from cggp_tpu_torch.training.optimize import predict_in_batches
+    from cggp_tpu_torch.training.optimize import adam, make_adam_step, predict_in_batches
+    import cggp_tpu_torch.ops.cg as cg_module
+    from cggp_tpu_torch.ops.cg import CholPreconditioner
+    from cggp_tpu_torch.ops.logdet import rademacher
     from cggp_tpu_torch.models.clustergp import ClusterGP
     from cggp_tpu_torch.models.implicit import ImplicitCGGP
     from cggp_tpu_torch.ops.kernels import kernel_value_from_r2, scaled_squared_distance
@@ -404,7 +517,8 @@ def main() -> int:
                     f"selection metadata differs from {meta}")
             iv, u, counts = sel["iv"], sel["u"], sel["counts"]
         require(iv.shape == (M_EXPECTED, 3), f"inducing set shape {iv.shape}")
-        (x_train, _), (x_test, _) = synthetic(n=meta["n"], dim=meta["dim"], seed=meta["seed"])
+        (x_train, y_train), (x_test, _) = synthetic(n=meta["n"], dim=meta["dim"],
+                                                    seed=meta["seed"])
         n_train = x_train.shape[0]
         xq = torch.as_tensor(x_test[:NUM_BATCHES * R_BATCH], dtype=torch.float32, device=device)
 
@@ -493,7 +607,22 @@ def main() -> int:
                     "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, HBM 3.35 TB/s "
                             "(H100 SXM data sheet)"}
             cases.append(case)
-        emit({"phase": "B1", "cases": cases, "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        # On data of one sign (the serving system: Kmn rows times Kmm +
+        # Lambda) a rounding that leans one way does not average out: the
+        # mean signed error relative to fp64, kernel against torch.matmul
+        # and against the emulation with its parts truncated (as the tensor
+        # cores do) and rounded to nearest.
+        exact = kmn_rows.double() @ kmm_lambda.double()
+        one_sign = {name: float(((fn(kmn_rows, kmm_lambda).double() - exact) / exact).mean())
+                    for name, fn in (
+                        ("kernel", pallas_matvec), ("library", torch.matmul),
+                        ("3xtf32_emulated_truncated",
+                         lambda p, a: matmul_3xtf32_emulated(p, a, truncate=True)),
+                        ("3xtf32_emulated", matmul_3xtf32_emulated))}
+        del exact
+        emit({"phase": "B1", "cases": cases,
+              "mean_signed_rel_err_on_kernel_values": one_sign,
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
         big = cases[-1]
         kernels["pallas_matvec"] = {
             "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
@@ -557,21 +686,7 @@ def main() -> int:
                                         calls=3)
             split_ms = sum(v for k, v in profiled.items() if "split_b_kernel" in k)
             solve_ms = sum(v for k, v in profiled.items() if "cg_" in k and "kernel" in k)
-            # Bytes of this design (csrc/pallas_cg.cu), each counted once: A
-            # and b read, v written, and per step on the tiled path p read
-            # and pA written by the product, p, r, pA, v read and v, r, p
-            # written by the row pass (9 R M words); on the small-R path r
-            # written and read and each block's two partial dots.
-            # Operations: per step the [R, M] x [M, M] product (3xTF32 on
-            # the tiled path, fp32 FMA on the small-R path) plus ~11 R M for
-            # dots and updates.
-            tiled = plan["path"] == "tiled"
-            per_step_bytes = 4.0 * (9 * rows * m if tiled
-                                    else 2 * rows * m + 4 * plan["grid"] * rows)
-            bound, bound_by, bound_what, parts = bound_parts(
-                4.0 * (m * m + 2 * rows * m) + steps * per_step_bytes,
-                steps * (2.0 * rows * m * m + 11.0 * rows * m),
-                steps * 2.0 * rows * m * m if tiled else 0.0)
+            (bound, bound_by, bound_what, parts), per_step_bytes = b2_bound(rows, m, steps, plan)
             cases.append({"rhs": name, "rows": rows, "m": m, "plan": plan, "steps": steps,
                           "steps_plain": steps_plain, "steps_jax_cpu": jax_steps,
                           "steps_3xtf32_emulated": steps_emulated, "max_abs_err": err,
@@ -684,6 +799,294 @@ def main() -> int:
     route_gap = max(float((served["pallas"][i] - served["pallas_resident"][i]).abs().max())
                     for i in (0, 1))
     require(route_gap <= SERVE_ATOL, f"the two kernel routes differ by {route_gap}")
+
+    # -- training: the dense CGGP training step through each route -------------
+    m = params["inducing_points"].shape[0]
+    train_rows = 1 + 2 * TRAIN_PROBES + TRAIN_BATCH  # [u | probes | logdet probes | Kmn]
+    with Phase("setup_train", 120) as ph:
+        cpu_gen = torch.Generator().manual_seed(TRAIN_BATCH_SEED)
+        batch_index = torch.stack([torch.randperm(n_train, generator=cpu_gen)[:TRAIN_BATCH]
+                                   for _ in range(1 + TRAIN_WARMUP + TRAIN_STEPS)])
+        xt = torch.as_tensor(x_train, dtype=torch.float32, device=device)
+        yt = torch.as_tensor(y_train, dtype=torch.float32, device=device)
+        index_dev = batch_index.to(device)
+        # Batch 0 is the first step's (checked against fp64 and JAX); the
+        # training window runs on the batches after it.
+        batches = [(xt[i], yt[i]) for i in index_dev]
+        batch0_64 = tuple(t.double() for t in batches[0])
+        params64 = {k: ({kk: vv.double() for kk, vv in v.items()} if isinstance(v, dict)
+                        else v.double()) for k, v in params.items()}
+
+        def train_model(impl, config):
+            if config == "chol":
+                cg = ConjugateGradient(TRAIN_CHOL_THRESHOLD, relative_threshold=True,
+                                       matvec_impl=impl)
+            else:
+                cg = ConjugateGradient(CG_THRESHOLD, matvec_impl=impl)
+            return CGGP(kernel=Matern32(), conjugate_gradient=cg, num_data=n_train,
+                        num_probes=TRAIN_PROBES,
+                        precondition="chol" if config == "chol" else None)
+
+        def probe_gen():
+            return torch.Generator(device=device).manual_seed(TRAIN_PROBE_SEED)
+
+        # The first step's probes as the fused ELBO draws them (trace probes,
+        # then logdet probes), kept with the batch for the JAX reference run.
+        gen = probe_gen()
+        step0_probes = np.stack([rademacher(gen, (m, TRAIN_PROBES), torch.float32).cpu().numpy()
+                                 for _ in range(2)])
+        probes_sha256 = hashlib.sha256(step0_probes.tobytes()).hexdigest()
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        np.savez(out_dir / "train_step0.npz", probes=step0_probes,
+                 batch_index=batch_index[0].numpy())
+        emit({"phase": "setup_train", "m": int(m), "rows": train_rows, "batch": TRAIN_BATCH,
+              "steps": TRAIN_STEPS, "warmup": TRAIN_WARMUP, "lr": TRAIN_LR,
+              "probes_sha256": probes_sha256,
+              "batch_index_sha256": hashlib.sha256(batch_index[0].numpy().tobytes()).hexdigest(),
+              "wall_s": ph.elapsed()})
+
+    # The first step in float64 ("xla", same configuration, same batch and
+    # probes) and in float32 on the plain "xla" loop: the yardstick of each
+    # kernel route's gap.
+    with Phase("reference_train", 300) as ph:
+        refs = {}
+        for config in ("plain", "chol"):
+            loss64, grads64 = loss_and_grads(train_model("xla", config), params64, batch0_64,
+                                             probe_gen())
+            loss32, grads32 = loss_and_grads(train_model("xla", config), params, batches[0],
+                                             probe_gen())
+            ph.wait()
+            refs[config] = {"loss64": loss64, "grads64": grads64,
+                            "xla_gap": relative_gaps(loss32, grads32, loss64, grads64)}
+        emit({"phase": "reference_train",
+              "fp64": {c: {"loss": float(r["loss64"]),
+                           **{f"|d {n}|": float(torch.linalg.vector_norm(r["grads64"][n]))
+                              for n in TRAINABLE}} for c, r in refs.items()},
+              "xla_fp32_gap": {c: r["xla_gap"] for c, r in refs.items()},
+              "wall_s": ph.elapsed()})
+
+    trained = {}
+
+    def train_phase(name, impl, config, budget_s, extra=None):
+        """One training route: the first step against fp64, 3 warm-up steps,
+        then TRAIN_STEPS timed steps with the launch counts set to 0 just
+        before and read just after; ``extra(ph, record)`` adds to the record
+        inside the phase."""
+        with Phase(name, budget_s) as ph:
+            model = train_model(impl, config)
+            solves, undo = record_dense_solves(cg_module)
+            try:
+                loss0, grads0 = loss_and_grads(model, params, batches[0], probe_gen())
+                step0 = [(int(s["stats"].steps), bool(s["stats"].converged)) for s in solves]
+                solves.clear()
+                step = make_adam_step(model.training_loss, adam(TRAIN_LR),
+                                      model.trainable_mask(params))
+                p, opt = params, adam(TRAIN_LR).init(params)
+                gen = probe_gen()
+                for batch in batches[1:1 + TRAIN_WARMUP]:
+                    p, opt, _ = step(p, opt, batch, gen)
+                ph.wait()
+                solves.clear()
+                for counted in (pallas_cg_solve, pallas_matvec, gram_matvec, kuu_matvec):
+                    counted.launches = 0
+                t0 = time.monotonic()
+                losses = []
+                for batch in batches[1 + TRAIN_WARMUP:]:
+                    p, opt, loss = step(p, opt, batch, gen)
+                    losses.append(loss)
+                ph.wait()
+                window_s = time.monotonic() - t0
+                launches = {counted.__name__: counted.launches for counted in
+                            (pallas_cg_solve, pallas_matvec, gram_matvec, kuu_matvec)}
+            finally:
+                undo()
+            # Everything below reads the window's results after it.
+            steps_run = len(losses)
+            require(steps_run == TRAIN_STEPS, f"{name}: {steps_run} steps, want {TRAIN_STEPS}")
+            require(len(solves) == 2 * steps_run,
+                    f"{name}: {len(solves)} CG solves, want a forward and a backward a step")
+            fwd = [(int(s["stats"].steps), bool(s["stats"].converged)) for s in solves[0::2]]
+            bwd = [(int(s["stats"].steps), bool(s["stats"].converged)) for s in solves[1::2]]
+            require(all(int(s["rhs"].shape[0]) == train_rows for s in solves),
+                    f"{name}: a solve's block is not [{train_rows}, {m}]")
+            # B3 is off the dense path (matrix-free training is a later slice).
+            want = {"pallas_cg_solve": 0, "pallas_matvec": 0, "gram_matvec": 0, "kuu_matvec": 0}
+            if impl == "pallas_resident":
+                want["pallas_cg_solve"] = 2 * steps_run
+            elif impl == "pallas":
+                # every matvec: the initial residual and one a step, both passes
+                want["pallas_matvec"] = sum(k + 1 for k, _ in fwd + bwd)
+            require(launches == want, f"{name}: launches {launches}, want {want}")
+            losses = [float(v) for v in losses]
+            require(all(math.isfinite(v) for v in losses), f"{name}: non-finite loss {losses}")
+            leaves = [v for sub in p.values() for v in (sub.values() if isinstance(sub, dict)
+                                                        else [sub])]
+            require(all(bool(torch.isfinite(v).all()) for v in leaves),
+                    f"{name}: non-finite parameters after training")
+            gaps = relative_gaps(loss0, grads0, refs[config]["loss64"], refs[config]["grads64"])
+            xla_gap = refs[config]["xla_gap"]
+            gap_over_xla = {k: (gaps[k] / xla_gap[k] if xla_gap[k] > 0
+                                else 0.0 if gaps[k] == 0 else math.inf) for k in gaps}
+            if impl != "xla":
+                # The rule of every kernel phase: no further from float64
+                # than twice the float32 plain route, for the loss and for
+                # each gradient on its own.
+                require(all(math.isfinite(v) and v <= 2.0 for v in gap_over_xla.values()),
+                        f"{name}: first step {gaps} from fp64, xla fp32 {xla_gap}")
+            record = {"phase": name, "matvec_impl": impl, "config": config,
+                      "steps": steps_run, "window_s": window_s,
+                      "steps_per_s": steps_run / window_s,
+                      "ms_per_step": window_s * 1e3 / steps_run, "launches": launches,
+                      "cg_steps_forward": [k for k, _ in fwd],
+                      "cg_steps_backward": [k for k, _ in bwd],
+                      "converged_forward": [c for _, c in fwd],
+                      "converged_backward": [c for _, c in bwd],
+                      "loss_first": losses[0], "loss_last": losses[-1],
+                      "step0": {"loss": float(loss0),
+                                **{f"|d {n}|": float(torch.linalg.vector_norm(grads0[n]))
+                                   for n in TRAINABLE},
+                                "cg_steps": [k for k, _ in step0],
+                                "converged": [c for _, c in step0],
+                                "gap_vs_fp64": gaps, "xla_fp32_gap_vs_fp64": xla_gap,
+                                "gap_over_xla_fp32_gap": gap_over_xla},
+                      "tolerance": "first-step loss and each gradient: the relative gap "
+                                   "from fp64 at most 2x the fp32 xla route's",
+                      "nvidia_smi": card_line}
+            trained[name] = {"record": record, "solves": solves, "step0": step0,
+                             "launches": launches, "steps": steps_run}
+            if extra is not None:
+                extra(ph, record)
+            record["wall_s"] = ph.elapsed()
+            emit(record)
+
+    def b2_at_training_shape(ph, record):
+        # B2 at the training shape: the first timed step's forward block and
+        # its backward block (the cotangents: rows of mixed scale, the logdet
+        # probes' rows zero), against the plain loop and the fp64 solve.
+        cases = []
+        for label, rec in zip(("forward", "backward"),
+                              trained["train_pallas_resident"]["solves"][:2]):
+            a32 = rec["matrix"].float().contiguous()
+            rhs32 = rec["rhs"].float().contiguous()
+            rows = rhs32.shape[0]
+            plan = pallas_cg_plan(rows, m, device)
+            got, steps = pallas_cg_solve(a32, rhs32, CG_THRESHOLD, m)
+            want, steps_plain = pallas_cg_solve_plain(a32, rhs32, CG_THRESHOLD, m)
+            ph.wait()
+            steps, steps_plain = int(steps), int(steps_plain)
+            exact = torch.linalg.solve(a32.double(), rhs32.double().T).T
+            err_exact = float((got.double() - exact).abs().max())
+            err_exact_plain = float((want.double() - exact).abs().max())
+            err = float((got - want).abs().max())
+            row_norms = torch.linalg.vector_norm(rhs32, dim=1)
+            zero_rows = int((row_norms == 0).sum())
+            del exact
+            require(err_exact <= 2.0 * err_exact_plain,
+                    f"B2 training {label}: {err_exact} from fp64, plain fp32 {err_exact_plain}")
+            require(abs(steps - steps_plain) <= max(3, 0.05 * steps_plain),
+                    f"B2 training {label}: steps {steps} vs plain {steps_plain}")
+            require(bool(torch.all(got[row_norms == 0] == 0)),
+                    f"B2 training {label}: a zero row's solution is not zero")
+            times = timed_in_turns(
+                ph, {"plain": lambda: pallas_cg_solve_plain(a32, rhs32, CG_THRESHOLD, m),
+                     "kernel": lambda: pallas_cg_solve(a32, rhs32, CG_THRESHOLD, m)},
+                ["plain", "kernel", "kernel", "plain"], reps=1)
+            (bound, bound_by, bound_what, parts), _ = b2_bound(rows, m, steps, plan)
+            cases.append({"solve": label, "rows": rows, "m": m, "plan": plan, "steps": steps,
+                          "steps_plain": steps_plain, "zero_rows": zero_rows,
+                          "row_norm_max_over_min_nonzero": float(
+                              row_norms.max() / row_norms[row_norms > 0].min()),
+                          "max_abs_err": err, "max_abs_err_vs_fp64_solve": err_exact,
+                          "plain_max_abs_err_vs_fp64_solve": err_exact_plain,
+                          "kernel_ms": float(np.mean(times["kernel"])),
+                          "plain_ms": float(np.mean(times["plain"])), "turns_ms": times,
+                          "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
+                          "bound_parts_ms": parts})
+        b2_ms = sum(c["kernel_ms"] for c in cases)
+        record.update({"b2_at_training_shape": cases, "b2_ms_per_step": b2_ms,
+                       "b2_share_of_step": b2_ms / record["ms_per_step"]})
+        kernels["pallas_cg_solve"].update({
+            "train_launches": record["launches"]["pallas_cg_solve"],
+            "train_steps": record["steps"], "train_ms": cases[0]["kernel_ms"],
+            "train_backward_ms": cases[1]["kernel_ms"], "train_bound_ms": cases[0]["bound_ms"],
+            "train_backward_bound_ms": cases[1]["bound_ms"]})
+
+    def b1_at_training_shape(ph, record):
+        rec = trained["train_pallas_chol"]["solves"][0]
+        a32 = rec["matrix"].float().contiguous()
+        p = rec["rhs"].float().contiguous()  # a [2059, 989] block of the path's shape
+        rows = p.shape[0]
+        got = pallas_matvec(p, a32)
+        want = pallas_matvec_plain(p, a32)
+        ph.wait()
+        exact = p.double() @ a32.double()
+        err_fp64 = float((got.double() - exact).abs().max())
+        plain_err_fp64 = float((want.double() - exact).abs().max())
+        del exact
+        require(err_fp64 <= 2.0 * plain_err_fp64,
+                f"B1 training shape: {err_fp64} from fp64, plain fp32 {plain_err_fp64}")
+        times = timed_in_turns(ph, {"plain": lambda: pallas_matvec_plain(p, a32),
+                                    "kernel": lambda: pallas_matvec(p, a32),
+                                    "library": lambda: torch.matmul(p, a32)},
+                               ["plain", "kernel", "library", "kernel", "library", "plain"],
+                               reps=20)
+        b1_ms = float(np.mean(times["kernel"]))
+        bound, bound_by, bound_what, parts = bound_parts(
+            4.0 * (2 * rows * m + m * m), 2.0 * rows * m * m, 2.0 * rows * m * m)
+        lam0 = torch.zeros(m, device=device)
+        chol_build_ms = event_ms(ph, lambda: CholPreconditioner(a32, lam0), reps=5)
+        solves = trained["train_pallas_chol"]["solves"]
+        refinement = [int(s["stats"].steps) for s in solves]
+        launches_per_step = record["launches"]["pallas_matvec"] / record["steps"]
+        step_ms = record["ms_per_step"]
+        record.update({"refinement_iterations": refinement,
+                       "b1_at_training_shape": {
+                           "rows": rows, "m": m, "max_abs_err_vs_fp64": err_fp64,
+                           "plain_max_abs_err_vs_fp64": plain_err_fp64,
+                           "kernel_ms": b1_ms, "plain_ms": float(np.mean(times["plain"])),
+                           "library_ms": float(np.mean(times["library"])), "turns_ms": times,
+                           "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
+                           "bound_parts_ms": parts},
+                       "b1_launches_per_step": launches_per_step,
+                       "b1_ms_per_step": launches_per_step * b1_ms,
+                       "b1_share_of_step": launches_per_step * b1_ms / step_ms,
+                       "chol_build_ms": chol_build_ms,
+                       "chol_build_share_of_step": chol_build_ms / step_ms})
+        kernels["pallas_matvec"].update({
+            "train_launches": record["launches"]["pallas_matvec"], "train_steps": record["steps"],
+            "train_ms": b1_ms, "train_bound_ms": bound})
+
+    # B2 for the whole forward and backward solve of every step; B1 for every
+    # matvec of the exact-factor refinement, both passes; the plain "xla"
+    # loop in the resident route's configuration, the yardstick.
+    train_phase("train_pallas_resident", "pallas_resident", "plain", 300, b2_at_training_shape)
+    train_phase("train_pallas_chol", "pallas", "chol", 240, b1_at_training_shape)
+    train_phase("train_xla", "xla", "plain", 300)
+
+    # The JAX package's first step (JAX_TRAIN_STEP0): B2's forward and
+    # backward steps within max(3, 5 %) of JAX's on the same batch and probes.
+    with Phase("check_train_jax", 30):
+        require(JAX_TRAIN_STEP0 is not None, "no JAX reference for the first training step")
+        require(probes_sha256 == JAX_TRAIN_STEP0["probes_sha256"],
+                "the first step's probes are not those JAX's values were taken with")
+        step0 = trained["train_pallas_resident"]["step0"]
+        for (got, _), ref, label in zip(step0, JAX_TRAIN_STEP0["cg_steps"],
+                                        ("forward", "backward")):
+            require(abs(got - ref) <= max(3, 0.05 * ref),
+                    f"train_pallas_resident: first-step {label} steps {got} vs JAX {ref}")
+        port = trained["train_pallas_resident"]["record"]["step0"]
+        emit({"phase": "check_train_jax", "jax_cpu_fp32": JAX_TRAIN_STEP0,
+              "port_b2": {k: port[k] for k in ("loss", "cg_steps", "converged",
+                                               *(f"|d {n}|" for n in TRAINABLE))},
+              "tolerance": "B2's first-step forward and backward steps within max(3, 5 %) "
+                           "of JAX's"})
+    # B3 is off the dense training path (matrix-free training is a later
+    # slice): its launches read in the three training windows, all steps.
+    b3_train = {"train_launches": sum(t["launches"]["gram_matvec"] + t["launches"]["kuu_matvec"]
+                                      for t in trained.values()),
+                "train_steps": sum(t["steps"] for t in trained.values())}
+    del trained, batches, xt, yt
 
     # -- setup_implicit: the matrix-free workload ------------------------------
     with Phase("setup_implicit", 120) as ph:
@@ -923,6 +1326,7 @@ def main() -> int:
         implicit[route] = serve_implicit(f"serve_implicit_{route}", use_pallas,
                                          IMPLICIT_THRESHOLD, ixq, IMPLICIT_ATOL, 150)
     kernels["gram_matvec"]["launches"] = sum(implicit["pallas"]["launches"].values())
+    kernels["gram_matvec"].update(b3_train)
     tight = {route: serve_implicit(f"check_implicit_tight_{route}", use_pallas,
                                    IMPLICIT_TIGHT_THRESHOLD, ixq[:R_BATCH], IMPLICIT_TIGHT_ATOL,
                                    120)
@@ -947,7 +1351,8 @@ def main() -> int:
          "launches": kernels[name]["launches"], "max_abs_err": kernels[name]["max_abs_err"],
          "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
          "bound_ms": kernels[name]["bound_ms"], "bound_by": kernels[name]["bound_by"],
-         "library_ms": kernels[name]["library_ms"]}
+         "library_ms": kernels[name]["library_ms"],
+         **{k: v for k, v in kernels[name].items() if k.startswith("train_")}}
         for name in ("pallas_matvec", "pallas_cg_solve", "gram_matvec")]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

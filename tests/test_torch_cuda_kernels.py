@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions and an
 fp64 reference, at chip_smoke.py's tolerances: B1 (``pallas_matvec``), B2
 (``pallas_cg_solve``: both launch paths, each side of the small-R switches,
-the edge cases, bitwise repeats) and B3 (``gram_matvec`` / ``kuu_matvec``).
+the edge cases, bitwise repeats, the training step's block of mixed-scale
+and zero rows), B3 (``gram_matvec`` / ``kuu_matvec``), and the CG autograd
+Function's gradients through B2 and B1.
 
 Every test takes the ``cuda`` fixture, which skips it without a card (the
 CPU runs); the decision is made there, never at import, so every worker
@@ -241,6 +243,88 @@ def test_b2_takes_rhs_at_an_offset(cuda, rows):
     want, want_steps = pallas_cg_solve(a, b, B2_THRESHOLD, 989)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and int(steps) == int(want_steps)
+
+
+TRAIN_ROWS = 2059  # the fused training block: [u | 5 + 5 probes | 2048 Kmn rows]
+
+
+def test_b2_mixed_scales_and_zero_rows_at_the_training_shape(cuda):
+    # The shape and the kind of rows of the training step's backward solve:
+    # 2059 rows at M = 989 whose norms span 1 to 1e5, five of them zero (the
+    # logdet probes' cotangents).  The absolute stop rule is decided by the
+    # largest rows.  B2 is held to its plain loop and to fp64 as chip_smoke.py
+    # holds it: steps within max(3, 5 %), no further from fp64 than twice the
+    # plain loop, zero rows exactly zero.
+    a, rhs = _dense_system(cuda)
+    b = rhs["kmn_batch"][:TRAIN_ROWS].clone()
+    scales = 10.0 ** (5.0 * torch.arange(TRAIN_ROWS, device=cuda) / (TRAIN_ROWS - 1))
+    b = (b / b.norm(dim=1, keepdim=True) * scales[:, None]).contiguous()
+    b[6:11] = 0.0
+    m = a.shape[0]
+    launches = pallas_cg_solve.launches
+    got, steps = pallas_cg_solve(a, b, 1e-8, m)
+    plain, steps_plain = pallas_cg_solve_plain(a, b, 1e-8, m)
+    torch.cuda.synchronize()
+    assert pallas_cg_solve.launches == launches + 1
+    assert torch.isfinite(got).all() and not got[6:11].any()
+    assert abs(int(steps) - int(steps_plain)) <= max(3, 0.05 * int(steps_plain))
+    exact = torch.linalg.solve(a.double(), b.double().T).T
+    err = float((got.double() - exact).abs().max())
+    assert err <= 2.0 * float((plain.double() - exact).abs().max())
+
+
+@pytest.mark.parametrize("impl", ["pallas_resident", "pallas"])
+def test_cg_function_gradients_on_the_card(cuda, impl, monkeypatch):
+    # The autograd Function's dA and db through B2 (both solves) or B1 (every
+    # matvec of both solves), at the training shape, against fp64 solves: no
+    # further from them than twice the float32 "xla" route.
+    import cggp_tpu_torch.ops.cg as cg_module
+    from cggp_tpu_torch.ops.cg import conjugate_gradient
+
+    solves = []  # every solve's stats, forward and backward
+    impl_fn = cg_module._cg_dense_impl
+
+    def recording(*args):
+        out = impl_fn(*args)
+        solves.append(out[1])
+        return out
+
+    monkeypatch.setattr(cg_module, "_cg_dense_impl", recording)
+
+    a, rhs = _dense_system(cuda)
+    b = rhs["kmn_batch"][:TRAIN_ROWS].contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    dx = torch.randn(b.shape, generator=gen, device=cuda)
+    m = a.shape[0]
+
+    def grads(route):
+        aa = a.clone().requires_grad_()
+        bb = b.clone().requires_grad_()
+        sol, stats = conjugate_gradient(aa, bb, torch.zeros_like(bb), 1e-8,
+                                        max_iterations=m, max_steps_cycle=m + 1,
+                                        matvec_impl=route)
+        sol.backward(dx)
+        return aa.grad, bb.grad, int(stats.steps)
+
+    counters = (pallas_cg_solve.launches, pallas_matvec.launches)
+    da, db, _ = grads(impl)
+    launched = (pallas_cg_solve.launches - counters[0], pallas_matvec.launches - counters[1])
+    steps = [int(st.steps) for st in solves]
+    da_plain, db_plain, _ = grads("xla")
+    torch.cuda.synchronize()
+    assert len(steps) == 2  # the forward solve and the backward solve
+    if impl == "pallas_resident":
+        assert launched == (2, 0)
+    else:  # the initial residual and one matvec a step, in both solves
+        assert launched == (0, sum(k + 1 for k in steps))
+    a64 = a.double()
+    sol64 = torch.linalg.solve(a64, b.double().T).T
+    db64 = torch.linalg.solve(a64, dx.double().T).T
+    da64 = -sol64.T @ db64
+    for got, plain, exact in ((da, da_plain, da64), (db, db_plain, db64)):
+        assert torch.isfinite(got).all()
+        err = float((got.double() - exact).abs().max())
+        assert err <= 2.0 * float((plain.double() - exact).abs().max())
 
 
 def _implicit_operands(device, rows):

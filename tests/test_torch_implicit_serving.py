@@ -19,9 +19,7 @@ from cggp_tpu.data import synthetic as jax_synthetic
 from cggp_tpu.models.implicit import ImplicitCGGP as JaxImplicitCGGP
 from cggp_tpu.ops.kernels import Matern32 as JaxMatern32
 from cggp_tpu.training.optimize import predict_in_batches as jax_predict_in_batches
-from cggp_tpu_torch.models.cggp import CGGP
 from cggp_tpu_torch.models.implicit import ImplicitCGGP
-from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.kernels import Matern32
 from cggp_tpu_torch.ops.pallas_gram import gram_matvec, kuu_matvec
 from cggp_tpu_torch.training.optimize import predict_in_batches
@@ -162,15 +160,6 @@ def test_auto_resolves_to_cg_and_chol_is_refused():
         predict_in_batches(tmodel, tparams, x, posterior_solver="chol")
     with pytest.raises(ValueError):
         tmodel.posterior(tparams, solver="cholesky")
-
-
-def test_dense_cggp_still_refuses_auto():
-    cggp = CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(1e-8))
-    z, u, counts, xq = _problem()
-    params = cggp.init_params(z, pseudo_u=u, cluster_counts=counts, dtype=torch.float64,
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="Lanczos estimates"):
-        predict_in_batches(cggp, params, torch.as_tensor(xq))
 
 
 @pytest.mark.parametrize("call", ["lanczos", "rff", "elbo", "prior_kl", "cg_stats",

@@ -3,8 +3,12 @@ emulated in plain torch on the CPU (``ops.pallas_matvec.tf32_round``,
 ``matmul_3xtf32_emulated`` and the B3 emulations): the split is exact
 where it must be, the product stays within fp32-level error of fp64, and
 CG at the serving threshold converges in the same steps as the fp32 loop.
-The kernels themselves are held against their plain versions and fp64 on
-the card (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``)."""
+The emulation sums each stage in the kernels' two parts, each rounded to
+nearest (its default); the tensor cores truncate each part, which
+``truncate=True`` models and which leaves a one-sign bias on data of one
+sign (checked here, and against the card's in ``chip_smoke.py``).  The
+kernels themselves are held against their plain versions and fp64 on the
+card (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``)."""
 
 from pathlib import Path
 
@@ -20,7 +24,8 @@ from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.kernels import Matern32, kernel_value_from_r2, scaled_squared_distance
 from cggp_tpu_torch.ops.pallas_gram import (gram_matvec_3xtf32_emulated, gram_matvec_plain,
                                             kuu_matvec_3xtf32_emulated, kuu_matvec_plain)
-from cggp_tpu_torch.ops.pallas_matvec import matmul_3xtf32_emulated, split_tf32, tf32_round
+from cggp_tpu_torch.ops.pallas_matvec import (matmul_3xtf32_emulated, round_toward_zero,
+                                              split_tf32, tf32_round)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
@@ -109,6 +114,39 @@ def test_emulated_product_is_fp32_accurate(case):
     assert e_max <= 1.5 * f_max, (e_max, f_max)
 
 
+def test_round_toward_zero_truncates():
+    """``round_toward_zero`` against float64 truncation to 24 significant
+    bits (frexp, independent of the nextafter under test)."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal(20000) * 10.0 ** rng.integers(-30, 30, 20000)
+    x = np.concatenate([x, [0.0, 1.0, -1.0, 1.0 + 2.0 ** -30, -(1.0 + 2.0 ** -30)]])
+    mant, exp = np.frexp(x)
+    want = (np.trunc(mant * 2.0 ** 24) * 2.0 ** (exp - 24)).astype(np.float32)
+    got = round_toward_zero(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.all(np.abs(got.astype(np.float64)) <= np.abs(x))
+
+
+def test_truncated_parts_bias_one_sign_data():
+    """On kernel values (one sign) the truncating model leans one way: its
+    mean signed error relative to fp64 is -6.3e-8 over 64 rows of a Matern32
+    K(Z, Z) at M = 1024, against -9.8e-10 rounded to nearest and +5.9e-11
+    for the fp32 product; the largest relative error stays fp32-level
+    (6.5e-7, 5.5e-7 and 7.4e-7).  Held: below -2e-8 truncated, under a
+    twentieth of that in size rounded to nearest, and every largest error
+    below 1e-6."""
+    rng = np.random.default_rng(5)
+    a, _ = _matern32_kzz_with_pads(rng, 1024, 0)
+    p = a[:64].copy()
+    exact = p.astype(np.float64) @ a.astype(np.float64)
+    rel = {truncate: (matmul_3xtf32_emulated(torch.as_tensor(p), torch.as_tensor(a),
+                                             truncate=truncate).numpy() - exact) / exact
+           for truncate in (False, True)}
+    assert rel[True].mean() < -2e-8, rel[True].mean()
+    assert abs(rel[False].mean()) < abs(rel[True].mean()) / 20, rel[False].mean()
+    assert max(np.abs(r).max() for r in rel.values()) < 1e-6
+
+
 @pytest.mark.parametrize("kernel_name", ["se", "matern12", "matern32", "matern52"])
 def test_b3_emulations_match_plain_versions(kernel_name):
     """The B3 emulations differ from the fp32 plain versions only by the
@@ -184,7 +222,11 @@ def test_cg_with_emulated_matvec_matches_fp32_steps():
     mean over the Kmn rows take within 5 % of the fp32 loop's steps.  Single
     rows scatter more near convergence whatever the rounding: a matvec
     accumulated in float64 and rounded to fp32 once moves a row by up to
-    8.4 % (14 steps) here, so each row is held to 10 % (or 3 steps)."""
+    8.4 % (14 steps) here, so each row is held to 10 % (or 3 steps).  The
+    emulation rounds each part to nearest (the default); the fp32 loop's
+    own pseudo-u count moves from 242 to 255 steps between one and four
+    CPU threads, and the truncating model (``truncate=True``) lands on 255
+    against the one-thread 242."""
     with np.load(ROOT / "benchmarks" / "e2e_selection_covertree.npz") as sel:
         iv, u, counts = sel["iv"], sel["u"], sel["counts"]
     (x_train, _), (x_test, _) = synthetic(n=435_000, dim=3, seed=0)
