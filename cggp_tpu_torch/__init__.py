@@ -16,7 +16,11 @@ dense logdet estimators, the dense CGGP training step (fused ELBO,
 ``make_adam_step`` (``optax.adam``'s update), ``CGGP.posterior``
 (``"cg"``/``"chol"``/``"auto"``) and ``predict_in_batches``; the matrix-free
 ``ImplicitCGGP`` serving path with the pivoted-Cholesky spectral
-preconditioner and the fused Gram-matvec kernel.
+preconditioner and the fused Gram-matvec kernel; inducing-point selection
+(the cover tree with its native C++ build, k-means on the device, OIPS,
+greedy, uniform, the update functions and re-clustering) and the training
+loop (``make_adam_multi_step``, ``train_using_adam_and_update``, the
+monitor and its callbacks).
 
 Entry points default to ``device="cuda"`` and raise when no card is present
 unless the caller asks for ``device="cpu"``; they never fall back quietly.

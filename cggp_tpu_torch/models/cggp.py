@@ -23,9 +23,13 @@ estimate picks), :meth:`posterior_mean` and :meth:`posterior_predict`.
 Probes come from ``rademacher``, looked up in this module when a step runs,
 drawn from a ``torch.Generator`` (``key``) on the parameters' device.
 
-Not ported yet, each raising ``NotImplementedError``: ``precondition="rff"``
-(ROADMAP Queue A item 5), ``posterior(solver="lanczos")`` (item 7),
-re-clustering (``assign_clusters*``) and ``posterior_extend``.
+Re-clustering: :meth:`CGGP.assign_clusters` swaps in a host selection
+(re-padded to the pinned capacity on capacity-padded params) and
+:meth:`CGGP.assign_clusters_device` is the fixed-capacity swap.
+
+Not ported yet: ``precondition="rff"`` (ROADMAP Queue A item 5) and
+``posterior(solver="lanczos")`` (item 7) raise ``NotImplementedError``;
+``posterior_extend`` (item 10) is absent.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from cggp_tpu_torch.models.base import chol_or_cg_from_eigs, minibatch_scale
-from cggp_tpu_torch.models.clustergp import ClusterGP
+from cggp_tpu_torch.models.clustergp import ClusterGP, _as_tensor
 from cggp_tpu_torch.ops.cg import (CGStats, CholPreconditioner, ConjugateGradient,
                                    SpectralPreconditioner, _cholesky_or_nan,
                                    pivoted_cholesky_preconditioner)
@@ -129,13 +133,46 @@ class CGGP(ClusterGP):
             mask["inducing_mask"] = False
         return mask
 
-    def assign_clusters(self, *args, **kwargs):
-        raise NotImplementedError("re-clustering (assign_clusters) arrives with the selection "
-                                  "slice of the port (ROADMAP Queue A item 2)")
+    def assign_clusters(self, params: Dict, iv, means, counts) -> Dict:
+        """Host re-clustering: ``params`` with a new ``(Z, u, counts)``.  On
+        capacity-padded params the new selection is padded again to the same
+        capacity (through :meth:`assign_clusters_device`), so the mask never
+        goes stale against a Z of another shape."""
+        if "inducing_mask" not in params:
+            return super().assign_clusters(params, iv, means, counts)
+        z_old = params["inducing_points"]
+        capacity = z_old.shape[0]
+        dtype, device = z_old.dtype, z_old.device
+        iv = _as_tensor(iv, dtype, device)
+        if iv.shape[0] > capacity:
+            raise ValueError(
+                f"re-clustered M={iv.shape[0]} exceeds the pinned capacity {capacity}; "
+                "raise capacity at init_params or coarsen the selection")
+        m = iv.shape[0]
+        ones = torch.ones((1, m), dtype=dtype, device=device)
+        z, _lam, u_t, counts_t, mask_t = pad_inducing(
+            iv, ones[0], capacity, _as_tensor(means, dtype, device).T,
+            _as_tensor(counts, dtype, device).T, ones)
+        counts_p = counts_t.T
+        return self.assign_clusters_device(
+            params, z, u_t.T, torch.where(counts_p == 0.0, torch.ones_like(counts_p), counts_p),
+            mask_t.T)
 
-    def assign_clusters_device(self, *args, **kwargs):
-        raise NotImplementedError("re-clustering (assign_clusters_device) arrives with the "
-                                  "device-selection slice of the port (ROADMAP Queue A item 10)")
+    def assign_clusters_device(self, params: Dict, z, u, counts, mask) -> Dict:
+        """Fixed-capacity re-clustering swap: a dict update with no shape
+        change, for capacity-padded params only."""
+        if "inducing_mask" not in params:
+            raise ValueError("assign_clusters_device needs capacity-padded params — "
+                             "build them with init_params(capacity=...)")
+        if tuple(z.shape) != tuple(params["inducing_points"].shape):
+            raise ValueError(f"capacity mismatch: new Z {tuple(z.shape)} vs params "
+                             f"{tuple(params['inducing_points'].shape)}")
+        new = dict(params)
+        new["inducing_points"] = z
+        new["pseudo_u"] = _as_tensor(u, z.dtype, z.device)
+        new["cluster_counts"] = _as_tensor(counts, z.dtype, z.device)
+        new["inducing_mask"] = _as_tensor(mask, z.dtype, z.device)
+        return new
 
     # -- preconditioning --------------------------------------------------------
 

@@ -24,7 +24,7 @@ from cggp_tpu_torch.ops.linalg import add_diagonal
 def _as_tensor(value, dtype, device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(dtype=dtype, device=device)
-    return torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(value), dtype=dtype, device=device)  # a writable copy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +72,16 @@ class ClusterGP:
 
     def diag_variance(self, params: Dict) -> torch.Tensor:
         return self.likelihood.variance(params["likelihood"]) / params["cluster_counts"]
+
+    def assign_clusters(self, params: Dict, iv, means, counts) -> Dict:
+        """``params`` with a new inducing state (a re-clustering's ``(Z, u,
+        counts)``), in the parameters' dtype and on their device."""
+        z = params["inducing_points"]
+        new = dict(params)
+        new["inducing_points"] = _as_tensor(iv, z.dtype, z.device)
+        new["pseudo_u"] = _as_tensor(means, z.dtype, z.device)
+        new["cluster_counts"] = _as_tensor(counts, z.dtype, z.device)
+        return new
 
     def prior_kl(self, params: Dict) -> torch.Tensor:
         kp = params["kernel"]

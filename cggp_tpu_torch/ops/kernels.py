@@ -99,6 +99,9 @@ class Kernel:
     def lengthscales(self, params: KernelParams) -> torch.Tensor:
         return self.bijector.forward(params["lengthscales"])
 
+    def constrained(self, params: KernelParams) -> Dict[str, torch.Tensor]:
+        return {"variance": self.variance(params), "lengthscales": self.lengthscales(params)}
+
     def K(self, params: KernelParams, x: torch.Tensor,
           x2: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Dense Gram matrix ``K(x, x2)`` of shape [N, M]."""

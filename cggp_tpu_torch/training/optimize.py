@@ -1,11 +1,28 @@
-"""Training steps and batched serving (port of ``cggp_tpu/training/optimize.py``,
-one device).
+"""Trainers, monitor callbacks and batched serving (port of
+``cggp_tpu/training/optimize.py``, one device).
 
 * :func:`make_adam_step` — one optimizer step: the loss and its gradient
   by autograd, non-trainable leaves' gradients multiplied by zero through a
   boolean mask tree, then the update of :func:`adam`, which is
   ``optax.adam``'s (bias-corrected moments, ``eps`` outside the square
   root) with explicit state.  Nothing is read back to the host.
+* :func:`make_adam_multi_step` — K such steps in one Python call: batches
+  gathered on the device from a ``[K, B]`` index tensor, the probes of
+  every step drawn in order from the one generator, the losses returned as
+  a ``[K]`` tensor; the host reads nothing of its own (a solver route may
+  still read its stop rule, as ``"pallas"`` does).  ``precond_fn`` freezes
+  the CG preconditioner for the chunk.
+* :func:`train_using_adam_and_update` — the full Adam loop: host
+  re-clustering through ``update_fn`` (the optimizer state re-initialised
+  when a shape changes), the trainable mask, ``steps_per_call`` chunks,
+  monitor steps and scalar records, the preconditioner-mode resolver with
+  one step per mode, and ``torch.profiler`` windows.
+* Monitor callbacks: :func:`make_metrics_callback` (test RMSE and NLPD,
+  train ELBO), :func:`make_cg_stats_callback`, :func:`make_param_callback`
+  and :func:`create_monitor`.  Where the JAX package uses a fixed PRNG key
+  the port seeds a fresh generator on the parameters' device for every call
+  (seed 0 unless the caller gives one; the CG statistics fold the step into
+  it), so a repeated call gives the same number.
 * :func:`predict_in_batches` — the posterior cache is built once; every
   fixed-size batch then runs the model's ``posterior_predict`` and the
   results are concatenated on the device.  The loop itself reads nothing
@@ -17,19 +34,27 @@ one device).
   an explicit ``"chol"`` request raises.
 
 Not ported yet, each raising ``NotImplementedError`` where it is a switch
-of a ported function: ``batch_size="auto"``, the one-dispatch scan route,
-mesh serving, chunked CG serving, serving without the posterior cache and
-data-bound models; the K-step trainer, L-BFGS and the monitor (ROADMAP
-Queue A items 2 and 9).
+of a ported function: ``mesh`` training (ROADMAP Queue A item 12),
+``recluster_fn`` (device re-clustering inside a chunk, item 10),
+``batch_size="auto"``, the one-dispatch scan route, mesh serving, chunked
+CG serving, serving without the posterior cache and data-bound models
+(item 7).  The L-BFGS, full-batch and chunked trainers are absent (item 9).
 """
 
 from __future__ import annotations
 
+import inspect
+import time
 import warnings
-from typing import Callable, Dict, NamedTuple, Optional
+from pathlib import Path
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from cggp_tpu_torch.training.batching import (batched_indices, minibatch_index_iterator,
+                                              seed_from)
+from cggp_tpu_torch.training.monitor import Monitor
 
 
 def _expand_trainable_mask(mask, params):
@@ -125,6 +150,373 @@ def make_adam_step(loss_fn: Callable, optimizer: Adam, trainable_mask: Optional[
         return new_params, opt_state, loss.detach()
 
     return step
+
+
+def make_adam_multi_step(loss_fn: Callable, optimizer: Adam, data, trainable_mask=None,
+                         precond_fn=None, recluster_fn=None):
+    """``step(params, opt_state, idx_chunk, key) -> (params, opt_state,
+    losses)``: one Adam step (:func:`make_adam_step`) per row of the
+    ``[K, B]`` index tensor ``idx_chunk``, each on the batch gathered on the
+    data's device, with every step's probes drawn in order from the one
+    generator ``key``; ``losses`` is a ``[K]`` tensor on the device.
+
+    ``precond_fn(params) -> state`` builds the CG preconditioner once per
+    call from the chunk's entry parameters and reuses it for all K steps;
+    ``loss_fn`` then takes ``(params, batch, key, precond_state)``
+    (``CGGP.precond_state`` and ``training_loss(precond_override=...)``)."""
+    if recluster_fn is not None:
+        raise NotImplementedError(
+            "recluster_fn (device re-clustering inside a K-step chunk) arrives with the "
+            "device-selection slice of the port (ROADMAP Queue A item 10); re-cluster between "
+            "chunks with train_using_adam_and_update(update_fn=...)")
+    x, y = data
+
+    def multi_step(params: Dict, opt_state: AdamState, idx_chunk: torch.Tensor, key):
+        if precond_fn is not None:
+            precond = precond_fn(params)
+
+            def step_loss(p, batch, k):
+                return loss_fn(p, batch, k, precond)
+        else:
+            step_loss = loss_fn
+        step = make_adam_step(step_loss, optimizer, trainable_mask)
+        losses = []
+        for idx in idx_chunk.to(x.device):  # rows as views: no host read
+            batch = (x.index_select(0, idx), y.index_select(0, idx))
+            params, opt_state, loss = step(params, opt_state, batch, key)
+            losses.append(loss)
+        return params, opt_state, torch.stack(losses)
+
+    return multi_step
+
+
+def _tree_shapes(params: Dict):
+    return _tree_map(lambda leaf: tuple(leaf.shape), params)
+
+
+class _Profiler:
+    """A ``torch.profiler`` window written to ``profile_dir`` as a Chrome
+    trace when it stops (device activity traced for CUDA data)."""
+
+    def __init__(self, profile_dir, cuda: bool):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.profile_dir = Path(profile_dir)
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        self._prof = profile(activities=activities)
+        self._prof.start()
+
+    def stop(self) -> None:
+        self._prof.stop()
+        self.profile_dir.mkdir(parents=True, exist_ok=True)
+        self._prof.export_chrome_trace(str(self.profile_dir / "trace.json"))
+
+
+def train_using_adam_and_update(
+    params: Dict,
+    loss_fn: Callable,
+    data,
+    iterations: int,
+    batch_size: int,
+    learning_rate: float,
+    key: torch.Generator,
+    update_fn: Optional[Callable[[Dict], Dict]] = None,
+    update_during_training: bool = True,
+    trainable_mask: Optional[Dict] = None,
+    monitor: Optional[Monitor] = None,
+    profile_dir: Optional[str] = None,
+    profile_steps: Tuple[int, int] = (2, 6),
+    scalar_record_step: int = 1,
+    steps_per_call: int = 1,
+    mesh=None,
+    precond_fn=None,
+    recluster_fn=None,
+    precond_resolver=None,
+    loss_fn_for_mode=None,
+    resolve_every: int = 1,
+    initial_mode=None,
+    on_mode_change=None,
+) -> Dict:
+    """Adam training with an optional host inducing-point update; returns the
+    trained parameters.
+
+    The batch stream's seed is one draw from ``key`` (a ``torch.Generator``
+    on the data's device); every step's probes come from ``key`` after it.
+
+    * Every call runs ``K = steps_per_call`` steps (at least 1) through
+      :func:`make_adam_multi_step`: ``update_fn`` and the monitor run once
+      per chunk, ``iterations`` rounds up to a multiple of K, and the
+      monitor's step label is the chunk's first step (its values describe
+      the state after the chunk).  ``precond_fn`` (chunk-frozen
+      preconditioning) needs ``steps_per_call > 1``.
+    * ``update_fn(params) -> params`` runs on the host before each chunk
+      while ``update_during_training``; when it changes any shape (the
+      cover tree changed M) the optimizer state is re-initialised.
+    * The monitor gets ``train/loss`` and ``train/step_time_ms`` every
+      ``scalar_record_step`` steps (the loss is read on the host only then)
+      and runs its callbacks on every chunk's label.
+    * ``precond_resolver(params) -> mode`` with ``loss_fn_for_mode(mode)``:
+      the mode is resolved at the start (or taken from ``initial_mode``) and
+      again after every ``resolve_every``-th ``update_fn`` call; each mode's
+      step is built once and cached; ``on_mode_change(mode)`` fires on every
+      swap.  ``loss_fn`` is ignored when a resolver is given.
+    * ``profile_dir``: the chunks that overlap steps ``profile_steps[0]``
+      to ``profile_steps[1]`` are traced with ``torch.profiler`` (the JAX
+      package's window rule); the window opens once a run.
+    """
+    data_seed = seed_from(key)
+    optimizer = adam(learning_rate)
+    opt_state = optimizer.init(params)
+
+    if precond_resolver is not None:
+        if loss_fn_for_mode is None:
+            raise ValueError(
+                "precond_resolver requires loss_fn_for_mode (the factory that builds the "
+                "concrete-mode loss the step runs)")
+        if mesh is not None or precond_fn is not None:
+            raise ValueError(
+                "precond_resolver composes with the plain Adam paths only (not mesh "
+                "data-parallel steps or chunk-frozen precond_fn)")
+        if resolve_every < 1:
+            raise ValueError("resolve_every must be >= 1")
+        current_mode = initial_mode if initial_mode is not None else precond_resolver(params)
+    else:
+        current_mode = None
+
+    if precond_fn is not None and steps_per_call <= 1:
+        raise ValueError(
+            "precond_fn (chunk-frozen preconditioning) requires steps_per_call > 1 — at one "
+            "step per call it is identical to the model's own per-step build, just with a "
+            "different loss_fn signature")
+    if recluster_fn is not None:
+        raise NotImplementedError(
+            "recluster_fn (device re-clustering inside a K-step chunk) arrives with the "
+            "device-selection slice of the port (ROADMAP Queue A item 10); use update_fn")
+    if mesh is not None:
+        raise NotImplementedError("mesh (data-parallel) training arrives with the parallel "
+                                  "slice of the port (ROADMAP Queue A item 12)")
+
+    x = data[0]
+    k = max(int(steps_per_call), 1)
+    step_cache: Dict = {}
+
+    def step_for(mode):
+        """The K-step call of ``mode``'s loss, built once per mode."""
+        if mode not in step_cache:
+            fn = loss_fn if mode is None else loss_fn_for_mode(mode)
+            step_cache[mode] = make_adam_multi_step(fn, optimizer, data, trainable_mask,
+                                                    precond_fn=precond_fn)
+        return step_cache[mode]
+
+    multi_step = step_for(current_mode)
+    idx_chunks = minibatch_index_iterator(data_seed, x.shape[0], batch_size, k, device=x.device)
+    num_chunks = -(-int(iterations) // k)
+    record_chunks = max(int(scalar_record_step) // k, 1)
+    profiler, profiled = None, False
+    for chunk_i in range(num_chunks):
+        # The monitor's label is the chunk's FIRST step, a multiple of K,
+        # so a record_step that is a multiple of K stays reachable.
+        iteration = chunk_i * k
+        if profile_dir is not None and not profiled and iteration + k > profile_steps[0]:
+            profiler, profiled = _Profiler(profile_dir, x.is_cuda), True
+        if update_fn is not None and update_during_training:
+            shapes_before = _tree_shapes(params)
+            params = update_fn(params)
+            if _tree_shapes(params) != shapes_before:
+                opt_state = optimizer.init(params)
+            if precond_resolver is not None and chunk_i % resolve_every == 0:
+                new_mode = precond_resolver(params)
+                if new_mode != current_mode:
+                    current_mode = new_mode
+                    multi_step = step_for(new_mode)
+                    if on_mode_change is not None:
+                        on_mode_change(new_mode)
+        idx_chunk = next(idx_chunks)
+        t0 = time.perf_counter()
+        params, opt_state, losses = multi_step(params, opt_state, idx_chunk, key)
+        if monitor is not None:
+            # Reading the loss waits for the device: only on record chunks.
+            if chunk_i % record_chunks == 0:
+                loss_value = float(losses[-1])
+                dt_ms = (time.perf_counter() - t0) * 1e3 / k
+                monitor.add_scalar("train/step_time_ms", dt_ms, iteration)
+                monitor.add_scalar("train/loss", loss_value, iteration)
+            monitor(iteration, params)
+        if profiler is not None and iteration + k > profile_steps[1]:
+            profiler.stop()
+            profiler = None
+    if profiler is not None:
+        profiler.stop()
+    if monitor is not None:
+        monitor.flush()
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Monitor callbacks
+# ---------------------------------------------------------------------------
+
+
+def _seed_of(key) -> int:
+    """A callback's base seed: 0 for None, a generator's initial seed, or
+    the int given."""
+    if key is None:
+        return 0
+    if isinstance(key, torch.Generator):
+        return int(key.initial_seed())
+    return int(key)
+
+
+def _fixed_generator(device: torch.device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def _fold_in(seed: int, step: int) -> int:
+    """A seed of ``(seed, step)``, the counterpart of ``jax.random.fold_in``."""
+    return int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1)[0])
+
+
+def _like(t, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` (tensor or array) on ``ref``'s device in its dtype."""
+    if not isinstance(t, torch.Tensor):
+        t = torch.as_tensor(np.asarray(t))
+    return t.to(device=ref.device, dtype=ref.dtype)
+
+
+def _takes_key(model) -> bool:
+    try:
+        return "key" in inspect.signature(model.elbo).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def bind_predict_fn(model, train_data):
+    """Uniform ``predict(params, x) -> (mean, var)`` over models whose
+    ``predict_f`` takes the parameters only and those that also need the
+    training set (``predict_f(params, data, x_new)``)."""
+    if "data" in inspect.signature(model.predict_f).parameters:
+        return lambda params, x: model.predict_f(params, train_data, x, full_cov=False)
+    return lambda params, x: model.predict_f(params, x, full_cov=False)
+
+
+def make_metrics_callback(model, train_data, test_data, batch_size: int = 4096, key=None,
+                          check_numerics: bool = True) -> Callable:
+    """``metrics_fn(step, params) -> {"test/rmse", "test/nlpd", "train/elbo"}``:
+    test RMSE and NLPD over ``test_data`` in batches of ``batch_size``
+    (summed on the device, read once), and the ELBO of the first
+    ``batch_size`` training points with probes from a generator seeded
+    ``key`` (default 0) on the parameters' device, fresh for every call.
+    A non-finite ELBO raises ``FloatingPointError`` when ``check_numerics``."""
+    x_test, y_test = test_data
+    n_test = x_test.shape[0]
+    predict_f = bind_predict_fn(model, train_data)
+    seed = _seed_of(key)
+
+    def metrics_fn(step: int, params: Dict) -> Dict:
+        z = params["inducing_points"]
+        xt, yt = _like(x_test, z), _like(y_test, z)
+        sq_err_total = lpd_total = 0.0
+        with torch.no_grad():
+            for idx in batched_indices(n_test, batch_size):
+                xb, yb = xt[idx[0]:idx[-1] + 1], yt[idx[0]:idx[-1] + 1]
+                f_mean, f_var = predict_f(params, xb)
+                lpd = model.likelihood.predict_log_density(params["likelihood"], f_mean,
+                                                           f_var, yb)
+                sq_err_total = sq_err_total + torch.sum((yb - f_mean) ** 2)
+                lpd_total = lpd_total + torch.sum(lpd)
+            rmse = float(torch.sqrt(sq_err_total / n_test))
+            nlpd = float(-lpd_total / n_test)
+            x_train, y_train = train_data
+            n_eval = min(x_train.shape[0], batch_size)
+            batch = (_like(x_train[:n_eval], z), _like(y_train[:n_eval], z))
+            if _takes_key(model):
+                elbo = float(model.elbo(params, batch, _fixed_generator(z.device, seed)))
+            else:
+                elbo = float(model.elbo(params, batch))
+        if check_numerics and not np.isfinite(elbo):
+            raise FloatingPointError(f"non-finite ELBO at step {step}: {elbo}")
+        return {"test/rmse": rmse, "test/nlpd": nlpd, "train/elbo": elbo}
+
+    return metrics_fn
+
+
+def make_cg_stats_callback(model, data, batch_size: int = 2048, key=None) -> Callable:
+    """Monitor callback logging the CG steps and residual of the model's
+    training solve on the first ``batch_size`` points (probes from a seed of
+    ``(key, step)``, ``key`` default 0), and flagging unconverged solves:
+    ``cg/unconverged`` is the solver's own ``converged`` flag negated where
+    the stats carry it (exact, no false positive on a solve that converges
+    on its last permitted step), else ``steps >= cap``.  A warning is
+    emitted on every converged-to-unconverged transition."""
+    x, y = data
+    n_eval = min(x.shape[0], batch_size)
+    x_eval, y_eval = x[:n_eval], y[:n_eval]
+    base_seed = _seed_of(key)
+    if hasattr(model, "conjugate_gradient"):
+        cap = model.conjugate_gradient.max_iterations  # may be None (=> M)
+    else:
+        cap = getattr(model, "max_cg_iterations", None)
+    was_unconverged = [False]
+
+    def cg_stats_fn(step: int, params: Dict) -> Dict:
+        z = params["inducing_points"]
+        batch = (_like(x_eval, z), _like(y_eval, z))
+        stats = model.cg_stats(params, batch,
+                               _fixed_generator(z.device, _fold_in(base_seed, step)))
+        steps = int(stats.steps)
+        max_error = float(torch.max(stats.error))
+        limit = cap if cap is not None else z.shape[0]
+        if getattr(stats, "converged", None) is not None:
+            unconverged = not bool(stats.converged)
+        else:
+            unconverged = steps >= int(limit)
+        newly = unconverged and not was_unconverged[0]
+        was_unconverged[0] = unconverged
+        if newly:
+            how = (f"hit max_iterations={limit}" if steps >= int(limit)
+                   else f"stopped after {steps} iterations (cap {limit})")
+            warnings.warn(
+                f"CG solve {how} without converging at step {step} (residual "
+                f"0.5*rz={max_error:.3e}). Results may be silently inaccurate — raise "
+                "max_iterations, enable relative_threshold, or add a preconditioner.",
+                RuntimeWarning, stacklevel=2)
+        return {"cg/steps": steps, "cg/max_error": max_error,
+                "cg/unconverged": int(unconverged)}
+
+    return cg_stats_fn
+
+
+def make_param_callback(model) -> Callable:
+    """Constrained kernel and likelihood parameters, as numpy values."""
+
+    def param_fn(step: int, params: Dict) -> Dict:
+        del step
+        out = {}
+        for name, value in model.kernel.constrained(params["kernel"]).items():
+            value = value.detach().cpu().numpy()
+            if value.ndim == 0:
+                out[f"kernel/{name}"] = value
+            else:
+                for i, v in enumerate(value.reshape(-1)):
+                    out[f"kernel/{name}[{i}]"] = np.asarray(v)
+        out["likelihood/variance"] = (
+            model.likelihood.variance(params["likelihood"]).detach().cpu().numpy())
+        return out
+
+    return param_fn
+
+
+def create_monitor(logdir: Optional[str], metrics_fn: Optional[Callable] = None,
+                   param_fn: Optional[Callable] = None, record_step: int = 100,
+                   use_tensorboard: bool = True) -> Monitor:
+    """The standard monitor: ``metrics`` and ``params`` callbacks every
+    ``record_step`` steps."""
+    monitor = Monitor(logdir, use_tensorboard=use_tensorboard)
+    if metrics_fn is not None:
+        monitor.add_callback("metrics", metrics_fn, record_step=record_step)
+    if param_fn is not None:
+        monitor.add_callback("params", param_fn, record_step=record_step)
+    return monitor
 
 
 def _not_in_slice(what: str) -> NotImplementedError:

@@ -4,7 +4,9 @@
 Names are slash-joined paths of the raw (unconstrained) parameter dict, e.g.
 ``kernel/lengthscales``; a directory holds ``params.npz`` and ``info.json``.
 :func:`params_from_numpy` turns the JAX package's parameters (numpy arrays
-under the same keys, flat or nested) into the port's dict of tensors.
+under the same keys, flat or nested) into the port's dict of tensors, and
+:func:`adam_state_from_optax` turns ``optax.adam``'s state into the port's
+:class:`AdamState`, so a JAX run can resume in the port.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from cggp_tpu_torch.config import DeviceLike, resolve_device
+from cggp_tpu_torch.training.optimize import AdamState
 
 
 def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -63,6 +66,23 @@ def params_from_numpy(flat_or_tree: Mapping, device: DeviceLike = None,
         return torch.as_tensor(array, device=device, dtype=target)
 
     return convert(tree)
+
+
+def adam_state_from_optax(state, device: DeviceLike = None,
+                          dtype: Optional[torch.dtype] = None) -> AdamState:
+    """The port's :class:`AdamState` from optax's ``ScaleByAdamState``
+    (``count``, ``mu``, ``nu``, numpy-like leaves), or from the tuple
+    ``optax.adam(...).init`` returns, which holds one; ``mu`` and ``nu``
+    convert as :func:`params_from_numpy` does."""
+    if not hasattr(state, "mu"):
+        found = [s for s in state if hasattr(s, "mu")]
+        if len(found) != 1:
+            raise ValueError("adam_state_from_optax: expected one ScaleByAdamState "
+                             f"(count, mu, nu), found {len(found)}")
+        state = found[0]
+    return AdamState(count=int(np.asarray(state.count)),
+                     mu=params_from_numpy(state.mu, device=device, dtype=dtype),
+                     nu=params_from_numpy(state.nu, device=device, dtype=dtype))
 
 
 def load_config_dir(dirpath) -> Tuple[Dict[str, np.ndarray], Dict]:

@@ -47,23 +47,51 @@ Phases, each printing one JSON line of its own:
               R = 2059 against their plain versions and fp64, timed.
    ``check_train_jax``  B2's first-step forward and backward steps within
               max(3, 5 %) of the JAX package's (``JAX_TRAIN_STEP0``).
-8. ``setup_implicit``  the matrix-free workload: the committed cover-tree
+8. ``select_covertree``  ``covertree_update_inducing_parameters`` with the
+              native cover tree (host C++, built at first use) at resolution
+              0.35 over the float32 training split: M = 989, counts equal to
+              the committed selection, Z and u within ``SELECT_ATOL`` of it,
+              the minimum separation at least the last level's radius.
+   ``select_kmeans``  ``kmeans_lloyd`` warm-started from that Z, in fp32 and
+              fp64 on the card, then ``kmeans_update_inducing_parameters``:
+              the fp32 run against the fp64 one and against the JAX
+              package's fp32 run on the CPU (``JAX_KMEANS``), ms per Lloyd
+              pass.
+   ``train_multi_chol`` / ``train_multi_chol_frozen`` / ``train_multi_resident``
+              ``make_adam_multi_step`` at K = 25 (``bench.py``'s method: a
+              warm-up chunk, then 3 windows of 4 chunks, the best window's
+              steps/s) through B1 under the exact factor at relative 1e-5
+              (rebuilt every step, or frozen per chunk by
+              ``precond_fn=model.precond_state``) and through B2 with no
+              preconditioner at absolute 1e-8.  The warm-up chunk is held
+              against 25 ``make_adam_step`` calls on the same indices and
+              probes; each window's launch counts are set to 0 just before
+              and read just after (B2 exactly 2 a step, B1 the solves'
+              steps + 1, B3 none); every loss and parameter finite.
+   ``train_loop``  ``train_using_adam_and_update`` for 100 steps at
+              ``steps_per_call=25`` on the production route, re-clustering
+              with the cover tree every chunk, with a ``create_monitor`` of
+              the metrics (test RMSE, NLPD, train ELBO), parameter and
+              CG-statistics callbacks at ``record_step=25``: logged values
+              change from step to step, the test RMSE ends below its value
+              before training, no CG solve unconverged, launches counted.
+9. ``setup_implicit``  the matrix-free workload: the committed cover-tree
               selection at resolution 0.15 (M = 9576, padded to 10240 with
               ``block=2048``), ``ImplicitCGGP`` with pivoted-Cholesky
               preconditioning (rank 128) at relative threshold 1e-5.
-9. ``B3``     ``kuu_matvec`` against its plain version and fp64 at M = 10240
+10. ``B3``    ``kuu_matvec`` against its plain version and fp64 at M = 10240
               (real pads and mask) for R = 1 and 8192 (at 8192 the kernel's
               error from fp64 at most 2x the plain version's), ``gram_matvec``
               at N = 8192, M = 10240, R = 1, and ragged cases of each kernel
               family on both launch shapes; timed in turns with the plain
               version.
-10. ``reference_implicit``  the fp64 Cholesky posterior over the real points.
-11. ``serve_implicit_pallas`` / ``serve_implicit_xla``  the matrix-free
+11. ``reference_implicit``  the fp64 Cholesky posterior over the real points.
+12. ``serve_implicit_pallas`` / ``serve_implicit_xla``  the matrix-free
               serving path (``posterior(solver="cg")`` + ``predict_in_batches``,
               2 x 8192 query points) through B3 and through the plain blocked
               route, with the B3 launch counts set to 0 just before and read
               just after: every CG matvec must have gone through B3.
-12. ``check_implicit_tight_{pallas,xla}``  one 8192-row batch per route at relative
+13. ``check_implicit_tight_{pallas,xla}``  one 8192-row batch per route at relative
               threshold 1e-9, held tightly against the fp64 posterior.
 
 Bounds (``bound_parts``): the least time of an fp32-accurate result, the
@@ -88,8 +116,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -179,6 +209,50 @@ JAX_TRAIN_STEP0 = {
                    "likelihood/variance": 89475.7890625},
     "cg_steps": [331, 371], "converged": [True, True]}
 
+# The JAX package's e2e selection and training run (bench.py::end_to_end_metrics):
+# the cover tree at resolution 0.35 over the float32 training split, then
+# make_adam_multi_step at K = 25 in windows of 4 chunks, best of 3.
+SELECT_RES = 0.35
+# Z and u of a fresh native build against the committed selection (built by
+# the JAX package from the same float32 split): the JAX package's own native
+# build reproduced it within 6e-8 on the CPU (float32 rounding of fp64
+# centres and means); counts must be equal.
+SELECT_ATOL = 1e-6
+# The JAX package's fp32 k-means for the select_kmeans phase, on the CPU with
+# jax 0.9.0 (tests/jax_kmeans_reference.py): kmeans_lloyd over the float32
+# training split, k = 989, warm-started from the committed selection's Z;
+# Lloyd passes (assignments) and the final mean distance, and sums of the
+# centroids.
+JAX_KMEANS = {"jax": "0.9.0", "lloyd_passes": 50, "mean_distance": 0.18876200914382935,
+              "centroid_sum": 2.9715927221550373, "centroid_abs_sum": 3009.9370602845884}
+# Lloyd in fp32 and fp64 from one start reach nearby fixed points, not the
+# same one, and the fp32 run's path varies between runs (index_add_ sums in
+# no fixed order).  Over three runs on an H100 80GB HBM3 (700 W) the port's
+# fp32 run ended 2.8e-6 to 1.8e-5 (relative) from its fp64 run in mean
+# distance and 3.2e-7 to 2.1e-5 from JAX's fp32 run, in as many passes (50)
+# as both, its centroids 0.126 to 0.140 from the fp64 run's (rearrangements
+# within cells of the 0.35 resolution) and their absolute sum 3.8e-5 to
+# 5.9e-5 from JAX's; on the CPU the port's fp32 run gave 2.1e-5, 49 passes
+# and 0.138.  The mean distance and the pass count carry the check: the
+# mean distance held at 1e-4, about 5x the largest gap, the passes within 5
+# and the centroids' absolute sum at 3e-4, 5x its largest gap.  The bound on
+# the centroids' largest gap from fp64, one resolution, is only a sanity
+# bound: it would pass a badly wrong centroid.
+KMEANS_TOL = {"mean_distance_rel": 1e-4, "passes": 5, "centroid_max_abs": SELECT_RES,
+              "centroid_abs_sum_rel": 3e-4}
+MULTI_K = 25
+MULTI_WINDOWS = 3
+MULTI_CHUNKS = 4
+MULTI_BATCH_SEED = 1  # the index chunks' numpy seed (bench.py: PRNGKey(1))
+MULTI_PROBE_SEED = 2  # the probes: one generator on the card for the whole phase
+# The warm-up chunk against K make_adam_step calls on the same indices and
+# probes: the same operations in the same order, measured bitwise equal on
+# every route (H100 80GB HBM3, 700 W); held at 1e-6 relative.
+MULTI_CHUNK_RTOL = 1e-6
+LOOP_ITERATIONS = 100
+LOOP_RECORD_STEP = 25
+LOOP_SEED = 3
+METRICS_BATCH = 8192
 _T0 = time.monotonic()
 
 
@@ -402,16 +476,18 @@ def b2_bound(rows: int, m: int, steps: int, plan):
     return bound, per_step_bytes
 
 
-def record_dense_solves(cg_module):
+def record_dense_solves(cg_module, operands: bool = True):
     """Wrap the dense CG's ``_cg_dense_impl`` (forward and backward solves
-    alike) so every solve's system, right-hand side and CGStats are kept for
-    reading after the timed window; returns the list and an undo."""
+    alike) so every solve's CGStats (and with ``operands`` its system and
+    right-hand side) are kept for reading after the timed window; returns
+    the list and an undo."""
     solves = []
     impl = cg_module._cg_dense_impl
 
     def recording(*args):
         solution, stats = impl(*args)
-        solves.append({"matrix": args[7].detach(), "rhs": args[8].detach(), "stats": stats})
+        solves.append({"matrix": args[7].detach(), "rhs": args[8].detach(), "stats": stats}
+                      if operands else {"stats": stats})
         return solution, stats
 
     cg_module._cg_dense_impl = recording
@@ -447,6 +523,410 @@ def relative_gaps(loss, grads, ref_loss, ref_grads):
         out[name] = float(torch.linalg.vector_norm(grads[name].double() - ref)
                           / torch.linalg.vector_norm(ref))
     return out
+
+
+def e2e_phases(ctx) -> None:
+    """The selection and training-loop phases (``select_covertree``,
+    ``select_kmeans``, ``train_multi_*``, ``train_loop``) on the e2e
+    workload: ``ctx`` carries the card, the fp32 parameters at M = 989, the
+    training route's model factory, the training split on the card, the
+    test split (numpy), the committed selection's path and the ``kernels``
+    record, which gains each kernel's ``multi_*`` and ``loop_*`` counts."""
+    import cggp_tpu_torch.ops.cg as cg_module
+    import cggp_tpu_torch.selection.kmeans as kmeans_module
+    from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve
+    from cggp_tpu_torch.ops.pallas_gram import gram_matvec, kuu_matvec
+    from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec
+    from cggp_tpu_torch.selection import native as covertree_native
+    from cggp_tpu_torch.selection import (CoverTree, covertree_update_inducing_parameters,
+                                          kmeans_lloyd, kmeans_update_inducing_parameters)
+    from cggp_tpu_torch.training.batching import minibatch_index_iterator
+    from cggp_tpu_torch.training.optimize import (adam, create_monitor, make_adam_multi_step,
+                                                  make_adam_step, make_cg_stats_callback,
+                                                  make_metrics_callback, make_param_callback,
+                                                  train_using_adam_and_update)
+
+    device, card_line, params = ctx["device"], ctx["card_line"], ctx["params"]
+    train_model, kernels = ctx["train_model"], ctx["kernels"]
+    xt, yt = ctx["data"]
+    x_test, y_test = ctx["test_data"]
+    selection_path = ctx["selection_path"]
+    n_train = xt.shape[0]
+    counted_kernels = (pallas_cg_solve, pallas_matvec, gram_matvec, kuu_matvec)
+
+    def zero_counts():
+        for counted in counted_kernels:
+            counted.launches = 0
+
+    def read_counts():
+        return {counted.__name__: counted.launches for counted in counted_kernels}
+
+    # -- select_covertree: the e2e selection, built fresh by the native code
+    with Phase("select_covertree", 180) as ph:
+        t0 = time.monotonic()
+        covertree_native.build()  # host C++ at first use (not a GPU kernel)
+        native_build_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        sel_z, sel_u, sel_counts = covertree_update_inducing_parameters(
+            (xt, yt), SELECT_RES, backend="native")
+        ph.wait()
+        select_s = time.monotonic() - t0
+        require(sel_z.shape == (M_EXPECTED, 3), f"cover tree M = {sel_z.shape[0]}, want 989")
+        require(sel_z.device == xt.device and sel_z.dtype == torch.float32,
+                f"the selection landed on {sel_z.device} in {sel_z.dtype}")
+        with np.load(selection_path) as sel:
+            ref = {"iv": sel["iv"], "u": sel["u"], "counts": sel["counts"]}
+        got = {"iv": sel_z.cpu().numpy(), "u": sel_u.cpu().numpy(),
+               "counts": sel_counts.cpu().numpy()}
+        gaps = {k: float(np.abs(got[k].astype(np.float64) - ref[k]).max()) for k in ("iv", "u")}
+        require(np.array_equal(got["counts"], ref["counts"]),
+                "cluster counts differ from the committed selection")
+        require(all(v <= SELECT_ATOL for v in gaps.values()),
+                f"Z / u {gaps} from the committed selection, beyond {SELECT_ATOL}")
+        # The separation guarantee, in fp64 on the tree itself.
+        t0 = time.monotonic()
+        tree = CoverTree(None, (xt.cpu().numpy(), yt.cpu().numpy()),
+                         spatial_resolution=SELECT_RES, backend="native")
+        tree_s = time.monotonic() - t0
+        last_radius = tree.max_radius / 2 ** (tree.num_levels - 1)
+        separation = tree.minimum_separation()
+        require(separation >= last_radius,
+                f"minimum separation {separation} below the last radius {last_radius}")
+        require(np.array_equal(tree.centroids.astype(np.float32), got["iv"]),
+                "the tree's centres are not the update's Z")
+        emit({"phase": "select_covertree", "backend": "native", "resolution": SELECT_RES,
+              "m": int(sel_z.shape[0]), "levels": int(tree.num_levels),
+              "native_build_s": native_build_s, "select_s": select_s, "tree_build_s": tree_s,
+              "host_threads": int(covertree_native.load().covertree_num_threads()),
+              "gap_vs_committed": gaps, "counts_equal": True,
+              "min_separation": separation, "last_radius": last_radius,
+              "tolerance": f"counts equal; Z and u within {SELECT_ATOL} of "
+                           "benchmarks/e2e_selection_covertree.npz",
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+
+    # -- select_kmeans: Lloyd warm-started from the cover tree, fp32 and fp64
+    with Phase("select_kmeans", 240) as ph:
+        passes = []
+        assign = kmeans_module.kmeans_indices_and_distances
+
+        def counted_assign(centroids, points, distance_fn=None):
+            passes.append(1)
+            return assign(centroids, points, distance_fn=distance_fn)
+
+        kmeans_module.kmeans_indices_and_distances = counted_assign
+        lloyd = {}
+        try:
+            for label, dtype in (("fp32", torch.float32), ("fp64", torch.float64)):
+                xs = xt.to(dtype)
+                passes.clear()
+                ph.wait()
+                t0 = time.monotonic()
+                centroids, mean = kmeans_lloyd(xs, M_EXPECTED, initial_centroids=sel_z.to(dtype))
+                ph.wait()
+                wall = time.monotonic() - t0
+                lloyd[label] = {"centroids": centroids, "mean_distance": float(mean),
+                                "passes": len(passes), "wall_s": wall,
+                                "ms_per_pass": wall * 1e3 / len(passes)}
+                del xs
+        finally:
+            kmeans_module.kmeans_indices_and_distances = assign
+        t0 = time.monotonic()
+        km_z, km_u, km_counts = kmeans_update_inducing_parameters(
+            (xt, yt), lambda: lloyd["fp32"]["centroids"])
+        ph.wait()
+        update_s = time.monotonic() - t0
+        require(km_z.shape == (M_EXPECTED, 3) and km_u.shape == (M_EXPECTED, 1)
+                and km_counts.shape == (M_EXPECTED, 1), "k-means update shapes")
+        require(all(bool(torch.isfinite(t).all()) for t in (km_z, km_u, km_counts)),
+                "non-finite k-means update")
+        require(float(km_counts.sum()) >= n_train, "k-means counts do not cover the data")
+        c32 = lloyd["fp32"]["centroids"].double()
+        c64 = lloyd["fp64"]["centroids"]
+        vs_fp64 = {"mean_distance_rel": abs(lloyd["fp32"]["mean_distance"]
+                                            - lloyd["fp64"]["mean_distance"])
+                   / lloyd["fp64"]["mean_distance"],
+                   "passes": lloyd["fp32"]["passes"] - lloyd["fp64"]["passes"],
+                   "centroid_max_abs": float((c32 - c64).abs().max())}
+        vs_jax = {"mean_distance_rel": abs(lloyd["fp32"]["mean_distance"]
+                                           - JAX_KMEANS["mean_distance"])
+                  / JAX_KMEANS["mean_distance"],
+                  "passes": lloyd["fp32"]["passes"] - JAX_KMEANS["lloyd_passes"],
+                  "centroid_sum": float(c32.sum()) - JAX_KMEANS["centroid_sum"],
+                  "centroid_abs_sum_rel": abs(float(c32.abs().sum())
+                                              - JAX_KMEANS["centroid_abs_sum"])
+                  / JAX_KMEANS["centroid_abs_sum"]}
+        for ref_name, gaps in (("fp64", vs_fp64), ("JAX", vs_jax)):
+            require(gaps["mean_distance_rel"] <= KMEANS_TOL["mean_distance_rel"]
+                    and abs(gaps["passes"]) <= KMEANS_TOL["passes"],
+                    f"k-means fp32 vs {ref_name}: {gaps}, tolerance {KMEANS_TOL}")
+        require(vs_fp64["centroid_max_abs"] <= KMEANS_TOL["centroid_max_abs"],
+                f"k-means fp32 centroids {vs_fp64['centroid_max_abs']} from fp64")
+        require(vs_jax["centroid_abs_sum_rel"] <= KMEANS_TOL["centroid_abs_sum_rel"],
+                f"k-means fp32 centroids vs JAX {vs_jax}")
+        emit({"phase": "select_kmeans", "k": M_EXPECTED, "points": int(n_train),
+              **{label: {k: v for k, v in r.items() if k != "centroids"}
+                 for label, r in lloyd.items()},
+              "update_s": update_s, "fp32_vs_fp64": vs_fp64, "fp32_vs_jax_cpu_fp32": vs_jax,
+              "jax_cpu_fp32": JAX_KMEANS, "tolerance": KMEANS_TOL,
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        del c32, c64, lloyd, km_z, km_u, km_counts
+
+    # -- train_multi_*: make_adam_multi_step at K = 25, bench.py's windows ----
+    multi = {}
+
+    def multi_phase(name, impl, config, frozen, windows, chunks_per_window, budget_s):
+        """One warm-up chunk, held against K single steps on the same
+        indices and probes, then ``windows`` windows of ``chunks_per_window``
+        chunks with the launch counts set to 0 just before each and read
+        just after; the best window gives steps/s."""
+        with Phase(name, budget_s) as ph:
+            model = train_model(impl, config)
+            mask = model.trainable_mask(params)
+            if frozen:
+                def loss_fn(p, batch, key, state):
+                    return model.training_loss(p, batch, key, precond_override=state)
+            else:
+                loss_fn = model.training_loss
+            multi_step = make_adam_multi_step(loss_fn, adam(TRAIN_LR), (xt, yt), mask,
+                                              precond_fn=model.precond_state if frozen else None)
+            chunks = minibatch_index_iterator(MULTI_BATCH_SEED, n_train, TRAIN_BATCH, MULTI_K,
+                                              device=device)
+
+            def multi_gen():
+                return torch.Generator(device=device).manual_seed(MULTI_PROBE_SEED)
+
+            solves, undo = record_dense_solves(cg_module, operands=False)
+            try:
+                chunk0 = next(chunks)
+                gen = multi_gen()
+                p, opt, losses0 = multi_step(params, adam(TRAIN_LR).init(params), chunk0, gen)
+                if frozen:
+                    state0 = model.precond_state(params)
+                    single = make_adam_step(lambda q, batch, key: loss_fn(q, batch, key, state0),
+                                            adam(TRAIN_LR), mask)
+                else:
+                    single = make_adam_step(loss_fn, adam(TRAIN_LR), mask)
+                q, q_opt, q_gen, single_losses = params, adam(TRAIN_LR).init(params), multi_gen(), []
+                for row in chunk0:
+                    q, q_opt, loss = single(q, q_opt, (xt[row], yt[row]), q_gen)
+                    single_losses.append(loss)
+                ph.wait()
+                single_losses = torch.stack(single_losses)
+                chunk_gap = {"loss_rel": float(((losses0 - single_losses).abs()
+                                                / single_losses.abs()).max()),
+                             "bitwise_equal": bool(torch.equal(losses0, single_losses))}
+                for leaf in TRAINABLE:
+                    section, key = leaf.split("/")
+                    a, b = p[section][key], q[section][key]
+                    chunk_gap[leaf] = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                    chunk_gap["bitwise_equal"] &= bool(torch.equal(a, b))
+                require(all(v <= MULTI_CHUNK_RTOL for k, v in chunk_gap.items()
+                            if k != "bitwise_equal"),
+                        f"{name}: first chunk vs {MULTI_K} single steps {chunk_gap}")
+                del q, q_opt
+                window_s, window_launches, window_steps, all_losses = [], [], [], [losses0]
+                for _ in range(windows):
+                    ph.wait()
+                    solves.clear()
+                    zero_counts()
+                    t0 = time.monotonic()
+                    for _ in range(chunks_per_window):
+                        p, opt, losses = multi_step(p, opt, next(chunks), gen)
+                        all_losses.append(losses)
+                    float(losses[-1])  # the host read that ends a window, as bench.py's
+                    ph.wait()
+                    window_s.append(time.monotonic() - t0)
+                    window_launches.append(read_counts())
+                    window_steps.append([(int(st["stats"].steps), bool(st["stats"].converged))
+                                         for st in solves])
+            finally:
+                undo()
+            steps_per_window = chunks_per_window * MULTI_K
+            for launches, steps in zip(window_launches, window_steps):
+                require(len(steps) == 2 * steps_per_window,
+                        f"{name}: {len(steps)} CG solves in a window of {steps_per_window} steps")
+                want = {"pallas_cg_solve": 0, "pallas_matvec": 0, "gram_matvec": 0,
+                        "kuu_matvec": 0}
+                if impl == "pallas_resident":
+                    want["pallas_cg_solve"] = 2 * steps_per_window
+                elif impl == "pallas":
+                    want["pallas_matvec"] = sum(k + 1 for k, _ in steps)
+                require(launches == want, f"{name}: launches {launches}, want {want}")
+            losses = torch.cat(all_losses).cpu()
+            require(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss")
+            leaves = [v for sub in p.values() for v in (sub.values() if isinstance(sub, dict)
+                                                        else [sub])]
+            require(all(bool(torch.isfinite(v).all()) for v in leaves),
+                    f"{name}: non-finite parameters after training")
+            best = min(window_s)
+            fwd = [k for steps in window_steps for k, _ in steps[0::2]]
+            bwd = [k for steps in window_steps for k, _ in steps[1::2]]
+            record = {"phase": name, "matvec_impl": impl, "config": config,
+                      "precond_fn": "model.precond_state" if frozen else None, "k": MULTI_K,
+                      "windows": windows, "chunks_per_window": chunks_per_window,
+                      "steps_per_window": steps_per_window, "window_s": window_s,
+                      "steps_per_s": steps_per_window / best,
+                      "steps_per_s_windows": [steps_per_window / w for w in window_s],
+                      "ms_per_step": best * 1e3 / steps_per_window,
+                      "launches_per_window": window_launches,
+                      "launches_per_step": {k: v / steps_per_window
+                                            for k, v in window_launches[0].items()},
+                      "cg_steps_forward_mean": float(np.mean(fwd)),
+                      "cg_steps_backward_mean": float(np.mean(bwd)),
+                      "cg_steps_max": max(fwd + bwd),
+                      "converged": all(c for steps in window_steps for _, c in steps),
+                      "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+                      "first_chunk_vs_single_steps": chunk_gap,
+                      "tolerance": f"first chunk vs {MULTI_K} make_adam_step calls: "
+                                   f"relative {MULTI_CHUNK_RTOL}",
+                      "nvidia_smi": card_line, "wall_s": ph.elapsed()}
+            multi[name] = record
+            emit(record)
+
+    multi_phase("train_multi_chol", "pallas", "chol", False, MULTI_WINDOWS, MULTI_CHUNKS, 200)
+    multi_phase("train_multi_chol_frozen", "pallas", "chol", True, MULTI_WINDOWS,
+                MULTI_CHUNKS, 200)
+    multi_phase("train_multi_resident", "pallas_resident", "plain", False, MULTI_WINDOWS,
+                MULTI_CHUNKS, 240)
+
+    # -- train_loop: train_using_adam_and_update end to end, production route
+    with Phase("train_loop", 300) as ph:
+        model = train_model("pallas", "chol")
+        logdir = Path(tempfile.mkdtemp(prefix="cggp_train_loop_"))
+        spent = {"update_s": 0.0, "update_calls": 0, "callbacks_s": 0.0, "callback_calls": 0,
+                 "training_steps": 0}
+        # The launches and CG solves made inside update_fn and the callbacks,
+        # so that what is left of the run's counts is the training steps'.
+        outside = {part: {"launches": dict.fromkeys(read_counts(), 0), "solves": []}
+                   for part in ("update_fn", "callbacks")}
+
+        def attributed(part, fn, *args):
+            before, first = read_counts(), len(solves)
+            out = fn(*args)
+            for name, count in read_counts().items():
+                outside[part]["launches"][name] += count - before[name]
+            outside[part]["solves"].extend(solves[first:])
+            return out
+
+        def timed(fn):
+            def wrapped(step, p):
+                t0 = time.monotonic()
+                out = attributed("callbacks", fn, step, p)  # each reads its values on the host
+                spent["callbacks_s"] += time.monotonic() - t0
+                spent["callback_calls"] += 1
+                return out
+            return wrapped
+
+        def update_fn(p):
+            t0 = time.monotonic()
+
+            def update(p):
+                iv_new, u_new, counts_new = covertree_update_inducing_parameters(
+                    (xt, yt), SELECT_RES, backend="native")
+                return model.assign_clusters(p, iv_new, u_new, counts_new)
+            out = attributed("update_fn", update, p)
+            spent["update_s"] += time.monotonic() - t0
+            spent["update_calls"] += 1
+            return out
+
+        def step_loss(p, batch, key):
+            spent["training_steps"] += 1  # once per step: the trainer's loss call
+            return model.training_loss(p, batch, key)
+
+        test_data = (torch.as_tensor(x_test, dtype=torch.float32, device=device),
+                     torch.as_tensor(y_test, dtype=torch.float32, device=device))
+        metrics_fn = make_metrics_callback(model, (xt, yt), test_data, batch_size=METRICS_BATCH)
+        metrics0 = metrics_fn(0, params)  # the parameters before the first step
+        monitor = create_monitor(str(logdir), timed(metrics_fn), timed(make_param_callback(model)),
+                                 record_step=LOOP_RECORD_STEP, use_tensorboard=False)
+        monitor.add_callback("cg", timed(make_cg_stats_callback(model, (xt, yt),
+                                                                batch_size=TRAIN_BATCH)),
+                             record_step=LOOP_RECORD_STEP)
+        solves, undo = record_dense_solves(cg_module, operands=False)
+        try:
+            ph.wait()
+            zero_counts()
+            t0 = time.monotonic()
+            trained_loop = train_using_adam_and_update(
+                params, step_loss, (xt, yt), LOOP_ITERATIONS, TRAIN_BATCH, TRAIN_LR,
+                torch.Generator(device=device).manual_seed(LOOP_SEED), update_fn=update_fn,
+                trainable_mask=model.trainable_mask(params), monitor=monitor,
+                scalar_record_step=LOOP_RECORD_STEP, steps_per_call=MULTI_K)
+            ph.wait()
+            loop_s = time.monotonic() - t0
+            loop_launches = {"all": read_counts()}
+        finally:
+            undo()
+        loop_solves = {"all": solves}
+        for part, got in outside.items():
+            loop_launches[part] = got["launches"]
+            loop_solves[part] = got["solves"]
+        loop_launches["steps"] = {name: count - sum(loop_launches[part][name] for part in outside)
+                                  for name, count in loop_launches["all"].items()}
+        outside_ids = {id(st) for part in outside for st in loop_solves[part]}
+        loop_solves["steps"] = [st for st in solves if id(st) not in outside_ids]
+        loop_solves = {part: [(int(st["stats"].steps), bool(st["stats"].converged)) for st in sv]
+                       for part, sv in loop_solves.items()}
+        loop_steps = spent["training_steps"]
+        logs = {name: list(np.load(str(logdir / f"{name}.logs.npy"), allow_pickle=True))
+                for name in ("metrics", "params", "cg", "train")}
+        shutil.rmtree(logdir, ignore_errors=True)
+        label_steps = list(range(0, LOOP_ITERATIONS, LOOP_RECORD_STEP))
+        for name in ("metrics", "params", "cg"):
+            require([int(e["step"]) for e in logs[name]] == label_steps,
+                    f"train_loop: {name} logged at {[e['step'] for e in logs[name]]}")
+        for name, keys in (("metrics", ("test/rmse", "test/nlpd", "train/elbo")),
+                           ("params", ("kernel/variance", "likelihood/variance"))):
+            for key in keys:
+                values = [float(e[key]) for e in logs[name]]
+                require(all(math.isfinite(v) for v in values), f"train_loop: {key} {values}")
+                require(all(a != b for a, b in zip(values, values[1:])),
+                        f"train_loop: {key} frozen across steps {values}")
+        rmse = [float(e["test/rmse"]) for e in logs["metrics"]]
+        require(rmse[-1] < metrics0["test/rmse"],
+                f"train_loop: test RMSE {rmse[-1]} at the end, {metrics0['test/rmse']} before")
+        unconverged = [int(e["cg/unconverged"]) for e in logs["cg"]]
+        require(not any(unconverged), f"train_loop: cg/unconverged {unconverged}")
+        require(spent["update_calls"] == LOOP_ITERATIONS // MULTI_K,
+                f"train_loop: update_fn ran {spent['update_calls']} times")
+        require(loop_steps == LOOP_ITERATIONS,
+                f"train_loop: {loop_steps} training steps, want {LOOP_ITERATIONS}")
+        require(len(loop_solves["steps"]) == 2 * loop_steps,
+                f"train_loop: {len(loop_solves['steps'])} CG solves in {loop_steps} steps")
+        require(trained_loop["inducing_points"].shape == (M_EXPECTED, 3),
+                "train_loop: the re-clustered M changed")
+        for part in ("all", "steps", *outside):
+            want = {"pallas_cg_solve": 0,
+                    "pallas_matvec": sum(k + 1 for k, _ in loop_solves[part]),
+                    "gram_matvec": 0, "kuu_matvec": 0}
+            require(loop_launches[part] == want,
+                    f"train_loop: launches in {part} {loop_launches[part]}, want {want}")
+        steps_only_s = loop_s - spent["update_s"] - spent["callbacks_s"]
+        emit({"phase": "train_loop", "matvec_impl": "pallas", "config": "chol",
+              "iterations": LOOP_ITERATIONS, "steps_per_call": MULTI_K,
+              "record_step": LOOP_RECORD_STEP, "wall_s_run": loop_s, **spent,
+              "steps_s": steps_only_s, "steps_per_s_excluding_callbacks_and_update":
+                  loop_steps / steps_only_s,
+              "launches": loop_launches,
+              "cg_solves": {part: len(sv) for part, sv in loop_solves.items()},
+              "metrics_before": metrics0,
+              "metrics": [{k: (int(v) if k == "step" else float(v)) for k, v in e.items()}
+                          for e in logs["metrics"]],
+              "cg": [{k: (int(v) if k == "step" else float(v)) for k, v in e.items()}
+                     for e in logs["cg"]],
+              "train_loss": [float(e["loss"]) for e in logs["train"] if "loss" in e],
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+    for kernel_name in ("pallas_matvec", "pallas_cg_solve", "gram_matvec"):
+        names = ("gram_matvec", "kuu_matvec") if kernel_name == "gram_matvec" else (kernel_name,)
+        kernels.setdefault(kernel_name, {}).update({
+            "multi_launches": {phase: sum(sum(w[n] for n in names)
+                                          for w in r["launches_per_window"])
+                               for phase, r in multi.items()},
+            "multi_steps": {phase: r["windows"] * r["steps_per_window"]
+                            for phase, r in multi.items()},
+            "loop_launches": {part: sum(loop_launches[part][n] for n in names)
+                              for part in ("steps", "callbacks", "update_fn")},
+            "loop_steps": loop_steps})
 
 
 def main() -> int:
@@ -517,7 +997,7 @@ def main() -> int:
                     f"selection metadata differs from {meta}")
             iv, u, counts = sel["iv"], sel["u"], sel["counts"]
         require(iv.shape == (M_EXPECTED, 3), f"inducing set shape {iv.shape}")
-        (x_train, y_train), (x_test, _) = synthetic(n=meta["n"], dim=meta["dim"],
+        (x_train, y_train), (x_test, y_test) = synthetic(n=meta["n"], dim=meta["dim"],
                                                     seed=meta["seed"])
         n_train = x_train.shape[0]
         xq = torch.as_tensor(x_test[:NUM_BATCHES * R_BATCH], dtype=torch.float32, device=device)
@@ -1081,6 +1561,11 @@ def main() -> int:
                                                *(f"|d {n}|" for n in TRAINABLE))},
               "tolerance": "B2's first-step forward and backward steps within max(3, 5 %) "
                            "of JAX's"})
+    e2e_phases({"device": device, "card_line": card_line, "params": params,
+                "train_model": train_model, "data": (xt, yt),
+                "test_data": (x_test, y_test), "selection_path": selection_path,
+                "kernels": kernels})
+
     # B3 is off the dense training path (matrix-free training is a later
     # slice): its launches read in the three training windows, all steps.
     b3_train = {"train_launches": sum(t["launches"]["gram_matvec"] + t["launches"]["kuu_matvec"]
@@ -1246,10 +1731,10 @@ def main() -> int:
                       "results/clock/SM x 132 SMs at the max SM clock, HBM 3.35 TB/s (H100 SXM)",
               "nvidia_smi": card_line, "wall_s": ph.elapsed()})
         big = cases[1]
-        kernels["gram_matvec"] = {
+        kernels.setdefault("gram_matvec", {}).update({
             "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-            "bound_by": big["bound_by"], "library_ms": None}
+            "bound_by": big["bound_by"], "library_ms": None})
 
     # -- reference_implicit: the fp64 Cholesky posterior ----------------------
     with Phase("reference_implicit", 180) as ph:
@@ -1352,7 +1837,8 @@ def main() -> int:
          "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
          "bound_ms": kernels[name]["bound_ms"], "bound_by": kernels[name]["bound_by"],
          "library_ms": kernels[name]["library_ms"],
-         **{k: v for k, v in kernels[name].items() if k.startswith("train_")}}
+         **{k: v for k, v in kernels[name].items()
+            if k.startswith(("train_", "multi_", "loop_"))}}
         for name in ("pallas_matvec", "pallas_cg_solve", "gram_matvec")]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ from cggp_tpu_torch.data import synthetic
 from cggp_tpu_torch.models.cggp import CGGP
 from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.kernels import Matern32
-from cggp_tpu_torch.training.optimize import predict_in_batches
+from cggp_tpu_torch.training.optimize import adam, make_adam_multi_step, predict_in_batches
 from cggp_tpu_torch.utils.store import load_config_dir, params_from_numpy
 
 torch.set_num_threads(1)
@@ -151,11 +151,14 @@ def test_unported_switches_raise(call):
             CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(1e-6),
                  precondition="rff")
         elif call == "capacity":
-            # Capacity padding is ported; re-clustering inside it is not.
+            # Capacity padding and the host re-clustering swaps are ported;
+            # the fixed-capacity re-clustering inside a K-step chunk (the
+            # device delta-net's recluster_fn) is not.
             padded = tmodel.init_params(tparams["inducing_points"], capacity=64, device="cpu")
-            tmodel.assign_clusters_device(padded, padded["inducing_points"],
-                                          padded["pseudo_u"], padded["cluster_counts"],
-                                          padded["inducing_mask"])
+            make_adam_multi_step(tmodel.training_loss, adam(0.01), (x, x[:, :1]),
+                                 recluster_fn=lambda p: tmodel.assign_clusters_device(
+                                     p, padded["inducing_points"], padded["pseudo_u"],
+                                     padded["cluster_counts"], padded["inducing_mask"]))
         elif call == "batch_auto":
             predict_in_batches(tmodel, tparams, x, batch_size="auto", posterior_solver="cg")
         elif call == "scan":

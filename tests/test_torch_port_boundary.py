@@ -14,6 +14,8 @@ from cggp_tpu_torch.models.base import GaussianLikelihood
 from cggp_tpu_torch.models.cggp import CGGP
 from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.kernels import Matern32
+from cggp_tpu_torch.selection import covertree_update_inducing_parameters
+from cggp_tpu_torch.training.batching import minibatch_index_iterator
 from cggp_tpu_torch.utils.store import params_from_numpy
 
 torch.set_num_threads(1)
@@ -43,13 +45,34 @@ def test_port_source_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_port_package_and_smoke_script_exist():
-    assert len(PORT_SOURCES) >= 15
+    assert len(PORT_SOURCES) >= 22
     assert (ROOT / "cggp_tpu_torch" / "csrc" / "pallas_cg.cu").is_file()
     assert (ROOT / "cggp_tpu_torch" / "csrc" / "pallas_matvec.cu").is_file()
+    for module in ("selection/__init__", "selection/covertree", "selection/kmeans",
+                   "selection/native", "selection/points", "selection/update",
+                   "training/batching", "training/monitor"):
+        assert ROOT / "cggp_tpu_torch" / f"{module}.py" in PORT_SOURCES, module
+
+
+NATIVE_SOURCES = sorted(p for ext in ("*.cu", "*.cuh", "*.cc")
+                        for p in (ROOT / "cggp_tpu_torch" / "csrc").glob(ext))
+
+
+@pytest.mark.parametrize("path", NATIVE_SOURCES, ids=lambda p: p.name)
+def test_native_source_includes_nothing_of_jax_or_the_jax_package(path):
+    """The port's C++ and CUDA sources (the copied cover-tree source
+    among them) include only their own headers and the toolchain's."""
+    includes = [ln.split("#include", 1)[1].strip() for ln in path.read_text().splitlines()
+                if ln.strip().startswith("#include")]
+    for inc in includes:
+        assert "jax" not in inc and "cggp_tpu" not in inc, f"{path.name}: #include {inc}"
+        local = inc.startswith('"')
+        assert not local or (path.parent / inc.strip('"')).is_file(), f"{path.name}: {inc}"
+    assert any(p.name == "covertree.cc" for p in NATIVE_SOURCES)
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "cggp_init_params", "likelihood",
-                                   "params_from_numpy"])
+                                   "params_from_numpy", "index_iterator", "covertree_update"])
 def test_entry_points_without_a_card_raise_instead_of_using_the_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(1e-6))
@@ -61,6 +84,10 @@ def test_entry_points_without_a_card_raise_instead_of_using_the_cpu(entry, monke
             model.init_params(z)
         elif entry == "likelihood":
             GaussianLikelihood().init_params()
+        elif entry == "index_iterator":
+            next(minibatch_index_iterator(0, 10, 4, 2))
+        elif entry == "covertree_update":
+            covertree_update_inducing_parameters((z, z[:, :1]), 0.5, backend="numpy")
         else:
             params_from_numpy({"pseudo_u": z})
     # Asking for the CPU works.
