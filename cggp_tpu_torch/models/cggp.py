@@ -11,10 +11,13 @@ backward pass is a second CG solve on the same route (``ops/cg.py``); the
 trace term uses Rademacher probes and the log-det gradient reuses the
 fused solve's probe solutions (``eval_logdet_from_solves``) or, with
 ``logdet_variant="slq"``, comes with a Lanczos quadrature value.  The
-per-step preconditioner (``precondition=None | "pivchol" | "chol" |
+per-step preconditioner (``precondition=None | "rff" | "pivchol" | "chol" |
 "auto"``) is rebuilt from the current hyperparameters, outside the
-differentiated model.  ``init_params(capacity=...)`` pads the inducing set
-with exactly decoupled points behind an ``inducing_mask``.
+differentiated model; the ``"rff"`` sketch draws its frequencies from the
+step's generator after the probes (a generator seeded 0 where no key is
+given, as the JAX package uses ``PRNGKey(0)``).  ``init_params(capacity=...)``
+pads the inducing set with exactly decoupled points behind an
+``inducing_mask``.
 
 Serving: :meth:`CGGP.predict_f` (one fused solve), :meth:`CGGP.posterior`
 with ``solver="cg"``, ``"chol"`` or ``"auto"`` (a Lanczos conditioning
@@ -27,9 +30,8 @@ Re-clustering: :meth:`CGGP.assign_clusters` swaps in a host selection
 (re-padded to the pinned capacity on capacity-padded params) and
 :meth:`CGGP.assign_clusters_device` is the fixed-capacity swap.
 
-Not ported yet: ``precondition="rff"`` (ROADMAP Queue A item 5) and
-``posterior(solver="lanczos")`` (item 7) raise ``NotImplementedError``;
-``posterior_extend`` (item 10) is absent.
+Not ported yet: ``posterior(solver="lanczos")`` (ROADMAP Queue A item 7)
+raises ``NotImplementedError``; ``posterior_extend`` (item 10) is absent.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from cggp_tpu_torch.ops.cg_implicit import pad_inducing
 from cggp_tpu_torch.ops.linalg import add_diagonal
 from cggp_tpu_torch.ops.logdet import (eval_logdet, eval_logdet_from_solves,
                                        lanczos_extremal_eigs, rademacher, slq_logdet)
+from cggp_tpu_torch.ops.rff import rff_preconditioner
 
 # precondition="auto" picks the exact factor up to this M (the JAX package's
 # cutoff: past it the O(M^3) build and the second [M, M] buffer outgrow the
@@ -55,13 +58,7 @@ from cggp_tpu_torch.ops.logdet import (eval_logdet, eval_logdet_from_solves,
 _CHOL_AUTO_MAX_M = 8192
 # Serving "auto" never factorizes above this M.
 _CHOL_SERVING_MAX_M = 16384
-_PRECONDITIONS = (None, "pivchol", "chol", "auto")
-
-
-def _rff_refused() -> NotImplementedError:
-    return NotImplementedError(
-        "precondition='rff' (the random-Fourier sketch) arrives with the matrix-free "
-        "training slice of the port (ROADMAP Queue A item 5); use 'pivchol', 'chol' or 'auto'")
+_PRECONDITIONS = (None, "rff", "pivchol", "chol", "auto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,14 +70,12 @@ class CGGP(ClusterGP):
     logdet_variant: str = "zero"  # "zero" (reference semantics) | "slq"
     slq_lanczos_iters: int = 25
     fuse_kl_solves: bool = True
-    precondition: Optional[str] = None  # None | "pivchol" | "chol" | "auto"
-    precond_rank: int = 128
+    precondition: Optional[str] = None  # None | "rff" | "pivchol" | "chol" | "auto"
+    precond_rank: int = 128  # factor rank (for "rff": Fourier bases L, rank 2L)
 
     def __post_init__(self):
         if self.conjugate_gradient is None:
             raise ValueError("CGGP requires a ConjugateGradient instance")
-        if self.precondition == "rff":
-            raise _rff_refused()
         if self.precondition not in _PRECONDITIONS:
             raise ValueError(f"unknown precondition mode: {self.precondition!r}")
 
@@ -179,15 +174,20 @@ class CGGP(ClusterGP):
     def _build_preconditioner(self, kp, z, kmm, var, key=None):
         """The per-step solver-state preconditioner (None when disabled),
         built from detached inputs: it is not part of the differentiated
-        model.  ``key`` is the JAX signature's sketch key, read by no mode
-        of the port."""
-        del kp, key
+        model.  ``key`` is the generator the ``"rff"`` sketch draws from (a
+        generator seeded 0 on Z's device when None)."""
         mode = self.precondition
         if mode is None:
             return None
         if mode == "auto":
             mode = "chol" if z.shape[0] <= _CHOL_AUTO_MAX_M else "pivchol"
         with torch.no_grad():
+            if mode == "rff":
+                if key is None:
+                    key = torch.Generator(device=z.device).manual_seed(0)
+                return rff_preconditioner(self.kernel, {k: v.detach() for k, v in kp.items()},
+                                          z.detach(), var[:, 0].detach(), self.precond_rank,
+                                          key)
             if mode == "pivchol":
                 return pivoted_cholesky_preconditioner(kmm.detach(), var[:, 0].detach(),
                                                        self.precond_rank)
@@ -253,7 +253,8 @@ class CGGP(ClusterGP):
         kmm = self._masked_kmm(kp, z, mask)
         kmm_lambda = add_diagonal(kmm, var[:, 0])
         cg = self.conjugate_gradient
-        precond = self._build_preconditioner(kp, z, kmm, var)
+        # The "rff" sketch draws first here, then the trace and logdet probes.
+        precond = self._build_preconditioner(kp, z, kmm, var, key)
 
         if self.num_probes is None:
             kmm_lambda_inv_u = cg(kmm_lambda, u, preconditioner=precond)
@@ -328,7 +329,8 @@ class CGGP(ClusterGP):
             logdet_probes = logdet_probes * mask[:, None]
 
         if precond_override is None:
-            precond = self._build_preconditioner(kp, z, kmm, var)
+            # The "rff" sketch draws after the probes, in place of JAX's key_rff.
+            precond = self._build_preconditioner(kp, z, kmm, var, key)
         else:
             precond = _precond_from_state(precond_override)
 
@@ -390,7 +392,7 @@ class CGGP(ClusterGP):
                       else torch.zeros((m, 0), dtype=z.dtype, device=z.device))
             if mask is not None:
                 probes = probes * mask[:, None]
-            precond = self._build_preconditioner(kp, z, kmm, var)
+            precond = self._build_preconditioner(kp, z, kmm, var, key)
             _, stats = self.conjugate_gradient.solve_with_stats(
                 kmm_lambda, torch.cat([u, probes, kmn], dim=-1), preconditioner=precond)
         return stats
@@ -441,12 +443,11 @@ class CGGP(ClusterGP):
         preconditioner state (``solver="cg"``: each batch solves its ``Kmn``
         block by CG) or its Cholesky factor (``solver="chol"``: two
         triangular solves per batch); ``"auto"`` picks by the Lanczos
-        conditioning estimate.  ``key`` is the JAX signature's sketch key,
-        read by no preconditioner of the port.
+        conditioning estimate.  ``key`` is the generator of the ``"rff"``
+        sketch (seeded 0 when None).
 
         A failed factorization leaves a NaN factor, as ``jnp.linalg.cholesky``
         does, so the serving guard in ``predict_in_batches`` can report it."""
-        del key
         if solver not in ("auto", "chol", "cg", "lanczos"):
             raise ValueError(f"unknown posterior solver: {solver!r}")
         if solver == "lanczos":
@@ -468,7 +469,7 @@ class CGGP(ClusterGP):
             return CGGPPosterior(kernel_params=kp, inducing_points=z, kmm_lambda=None,
                                  nu=nu, precond_state=(), chol=chol, inducing_mask=mask,
                                  lam=var[:, 0])
-        precond = self._build_preconditioner(kp, z, kmm, var)
+        precond = self._build_preconditioner(kp, z, kmm, var, key)
         nu = self.conjugate_gradient(kmm_lambda, u, preconditioner=precond)
         return CGGPPosterior(kernel_params=kp, inducing_points=z, kmm_lambda=kmm_lambda,
                              nu=nu, precond_state=() if precond is None else precond.state,

@@ -10,13 +10,19 @@ the dense estimators).
   CG-probe gradient.
 * :func:`lanczos_extremal_eigs` — extremal Ritz values, for the
   chol-or-CG conditioning policies.
+* The estimators over an implicit operator (no [M, M] argument), for the
+  matrix-free model: :func:`make_matfree_logdet_from_solves`,
+  :func:`make_matfree_eval_logdet` and :func:`make_matfree_slq_logdet`,
+  whose gradients are the Hutchinson VJP of the model's matvec, and the
+  batched row Lanczos behind the SLQ value (:func:`lanczos_tridiag_rows`,
+  :func:`slq_value_rows`).
 
 Randomness comes from a ``torch.Generator`` where JAX takes a PRNG key;
 :func:`rademacher` draws on the generator's device.  Callers look it up by
 name when they run, so tests can substitute the JAX package's probes.
 
-Not ported yet: the matrix-free estimators (``make_matfree_*``, the row
-Lanczos) and the LOVE serving cache.
+Not ported yet: the LOVE serving cache (``lanczos_quad_cache_rows``,
+``love_variance``) and the host-chunked Lanczos.
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ from typing import Optional
 
 import torch
 
+from torch.autograd.function import once_differentiable
+
 from cggp_tpu_torch.ops.cg import ConjugateGradient, _cg_config, _cg_dense_impl
+from cggp_tpu_torch.ops.cg_implicit import matvec_vjp
 
 
 def rademacher(generator: torch.Generator, shape, dtype: torch.dtype) -> torch.Tensor:
@@ -241,3 +250,156 @@ def _ritz_extremes(alphas: torch.Tensor, betas: torch.Tensor):
     off = torch.where(used[1:], betas, torch.zeros_like(betas))
     evs = torch.linalg.eigvalsh(_tridiag(diag, off))
     return evs[0], evs[-1]
+
+
+# ---------------------------------------------------------------------------
+# Estimators over an implicit operator (no [M, M] matrix argument), for the
+# matrix-free model (models/rowcg.py).  Conventions:
+#   matvec(kp, z, lam, mask, rows [R, M]) -> rows @ (K(Z,Z)*mask + diag(lam))
+#   solve(kp, z, lam, rows, precond_state, mask) -> (solution_rows, stats)
+#   precond_state_fn(kp, z, lam, mask) -> solver state (() = identity)
+# Each returns ``logdet(kp, z, lam, mask, probes[, solved])``, differentiable
+# in the kernel parameters, ``z`` and ``lam``; probes are [P, M] rows.
+# ---------------------------------------------------------------------------
+
+
+class _MatfreeLogdet(torch.autograd.Function):
+    """Value ``spec.value(kp, z, lam, mask, probes)`` (0 or SLQ); gradient
+    ``vjp(matvec at probes)(solved * df / P)`` (Hutchinson), with ``solved``
+    given (already solved probes, constants) or solved in the backward pass
+    under ``spec.precond_state_fn``'s state."""
+
+    @staticmethod
+    def forward(ctx, spec, kp_names, mask, probes, solved, z, lam, *kp_values):
+        kp = dict(zip(kp_names, kp_values))
+        ctx.spec, ctx.kp_names, ctx.mask, ctx.solved = spec, kp_names, mask, solved
+        ctx.save_for_backward(probes, z, lam, *kp_values)
+        if spec.value is None:
+            return torch.zeros((), dtype=probes.dtype, device=probes.device)
+        return spec.value(kp, z, lam, mask, probes)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, df):
+        probes, z, lam, *kp_values = ctx.saved_tensors
+        kp = dict(zip(ctx.kp_names, kp_values))
+        spec, mask = ctx.spec, ctx.mask
+        solved = ctx.solved
+        if solved is None:
+            state = () if spec.precond_state_fn is None else spec.precond_state_fn(kp, z, lam,
+                                                                                   mask)
+            solved, _ = spec.solve(kp, z, lam, probes, state, mask)  # rows of A^{-1} p
+        w = solved * (df / probes.shape[0])
+        # d logdet / d theta = tr(A^{-1} dA/dtheta) ~= (1/P) sum_p solved_p^T dA probe_p
+        needs = (*ctx.needs_input_grad[7:], ctx.needs_input_grad[5], ctx.needs_input_grad[6])
+        grads = matvec_vjp(spec.matvec, kp, z, lam, mask, probes, w, needs)
+        return (None, None, None, None, None, grads[-2], grads[-1], *grads[:-2])
+
+
+class _MatfreeSpec:
+    def __init__(self, matvec, value=None, solve=None, precond_state_fn=None):
+        self.matvec, self.value, self.solve = matvec, value, solve
+        self.precond_state_fn = precond_state_fn
+
+
+def _apply_matfree(spec, kp, z, lam, mask, probes, solved=None):
+    names = tuple(kp)
+    if mask is not None:
+        mask = mask.detach()
+    return _MatfreeLogdet.apply(spec, names, mask, probes.detach(),
+                                None if solved is None else solved.detach(), z, lam,
+                                *(kp[k] for k in names))
+
+
+def make_matfree_logdet_from_solves(matvec):
+    """Zero-valued logdet whose gradient reuses already-solved probes
+    (``solved = A^{-1} probes`` rows from a fused solve, taken as
+    constants): ``theta_bar = df / P * vjp(matvec at probes)(solved)``, no
+    extra CG loop."""
+    spec = _MatfreeSpec(matvec)
+
+    def logdet(kp, z, lam, mask, probes, solved):
+        return _apply_matfree(spec, kp, z, lam, mask, probes, solved)
+
+    return logdet
+
+
+def make_matfree_eval_logdet(matvec, solve, precond_state_fn=None):
+    """Zero-valued logdet over the implicit matrix; the gradient is the
+    Rademacher/CG trace estimator: a matrix-free solve of the probes in the
+    backward pass, under ``precond_state_fn``'s state (the identity without
+    it), and one VJP of the matvec."""
+    spec = _MatfreeSpec(matvec, solve=solve, precond_state_fn=precond_state_fn)
+
+    def logdet(kp, z, lam, mask, probes):
+        return _apply_matfree(spec, kp, z, lam, mask, probes)
+
+    return logdet
+
+
+def make_matfree_slq_logdet(slq_value, matvec, solve, precond_state_fn=None):
+    """SLQ logdet value over the implicit matrix (``slq_value(kp, z, lam,
+    mask, probes [P, M]) -> scalar``, e.g. :func:`slq_value_rows` over the
+    model's matvec), with the gradient of :func:`make_matfree_eval_logdet`."""
+    spec = _MatfreeSpec(matvec, value=slq_value, solve=solve,
+                        precond_state_fn=precond_state_fn)
+
+    def logdet(kp, z, lam, mask, probes):
+        return _apply_matfree(spec, kp, z, lam, mask, probes)
+
+    return logdet
+
+
+def lanczos_tridiag_rows(matvec_rows, v0_rows: torch.Tensor, num_iters: int):
+    """Batched matrix-free Lanczos with full reorthogonalisation (twice).
+
+    ``matvec_rows`` maps [P, M] rows to ``v @ A`` rows; all P start vectors
+    advance together, one matvec a step.  Returns ``(alphas [k, P], betas
+    [k - 1, P])``."""
+    p, m = v0_rows.shape
+    dtype, device = v0_rows.dtype, v0_rows.device
+    norms = torch.linalg.vector_norm(v0_rows, dim=-1, keepdim=True)
+    v0 = v0_rows / torch.where(norms > 0, norms, torch.ones_like(norms))
+    basis = torch.zeros((num_iters, p, m), dtype=dtype, device=device)
+    basis[0] = v0
+    alphas = torch.zeros((num_iters, p), dtype=dtype, device=device)
+    betas = torch.zeros((num_iters, p), dtype=dtype, device=device)
+    for i in range(num_iters):
+        v = basis[i]
+        w = matvec_rows(v)
+        alpha = torch.sum(w * v, dim=-1)
+        w = w - alpha[:, None] * v
+        # Unfilled basis rows are zero, so projecting on them is a no-op.
+        for _ in range(2):
+            coef = torch.einsum("kpm,pm->kp", basis, w)
+            w = w - torch.einsum("kp,kpm->pm", coef, basis)
+        beta = torch.linalg.vector_norm(w, dim=-1)
+        safe = torch.where(beta > 0, beta, torch.ones_like(beta))
+        if i + 1 < num_iters:
+            basis[i + 1] = torch.where((beta > 0)[:, None], w / safe[:, None],
+                                       torch.zeros_like(w))
+        alphas[i] = alpha
+        betas[i] = beta
+    return alphas, betas[:-1]
+
+
+def slq_value_rows(matvec_rows, probes_rows: torch.Tensor, lanczos_iters: int) -> torch.Tensor:
+    """SLQ ``logdet`` estimate from row probes [P, M] through a matvec.  Each
+    probe is weighted by its own ``||z_p||^2``, so masked probes (zero on
+    pads) estimate the log-det of the real submatrix: their Krylov space
+    never leaves the real coordinates."""
+    alphas, betas = lanczos_tridiag_rows(matvec_rows, probes_rows, lanczos_iters)
+    return _slq_from_tridiag(alphas, betas, probes_rows)
+
+
+def _slq_from_tridiag(alphas: torch.Tensor, betas: torch.Tensor,
+                      probes_rows: torch.Tensor) -> torch.Tensor:
+    """Gauss-quadrature logdet from per-probe tridiagonals (alphas [k, P],
+    betas [k - 1, P])."""
+    a, b = alphas.T, betas.T  # [P, k], [P, k - 1]
+    t = torch.diag_embed(a) + torch.diag_embed(b, 1) + torch.diag_embed(b, -1)
+    evals, evecs = torch.linalg.eigh(t)
+    evals = torch.clamp(evals, min=torch.finfo(probes_rows.dtype).tiny)
+    quad = torch.sum(torch.square(evecs[:, 0, :]) * torch.log(evals), dim=-1)  # [P]
+    scale = torch.sum(torch.square(probes_rows), dim=-1)  # ||z_p||^2
+    return torch.mean(scale * quad)

@@ -80,8 +80,9 @@ Phases, each printing one JSON line of its own:
               ``block=2048``), ``ImplicitCGGP`` with pivoted-Cholesky
               preconditioning (rank 128) at relative threshold 1e-5.
 10. ``B3``    ``kuu_matvec`` against its plain version and fp64 at M = 10240
-              (real pads and mask) for R = 1 and 8192 (at 8192 the kernel's
-              error from fp64 at most 2x the plain version's), ``gram_matvec``
+              (real pads and mask) for R = 1, 8192 and the training block's
+              2059 (above R = 8 the kernel's error from fp64 at most 2x the
+              plain version's), ``gram_matvec``
               at N = 8192, M = 10240, R = 1, and ragged cases of each kernel
               family on both launch shapes; timed in turns with the plain
               version.
@@ -93,6 +94,35 @@ Phases, each printing one JSON line of its own:
               just after: every CG matvec must have gone through B3.
 13. ``check_implicit_tight_{pallas,xla}``  one 8192-row batch per route at relative
               threshold 1e-9, held tightly against the fp64 posterior.
+14. ``setup_train_implicit`` / ``reference_train_implicit``  matrix-free
+              training on the same selection: batches of 2048 (indices from a
+              seeded CPU generator, drawn up front), 5 probes from a seeded
+              generator on the card (written with the first batch's indices to
+              ``chiprun_out/implicit_train_step0.npz`` for the JAX reference),
+              adam(0.01); the first step's loss and gradients in fp64 on the
+              plain route at relative 1e-12 and in fp32 on the plain route.
+    ``train_implicit_pallas`` / ``train_implicit_xla``  ``make_adam_step``
+              through B3 and through the blocked route: the first step against
+              fp64 (B3 at most 2x the fp32 plain route's gap), 1 warm-up step
+              (peak device memory over it, beside one [M, M] fp32 buffer) and 5
+              timed steps with the launch counts set to 0 just before and read
+              just after (B3: ``kuu_matvec`` = the steps + 1 of every forward
+              and backward solve, no ``gram_matvec``; blocked route: none);
+              B3's first-step CG steps within max(3, 5 %) of the plain route's.
+    ``train_multi_implicit``  ``make_adam_multi_step`` at K = 5 through B3,
+              its chunk against 5 single steps, then a chunk with the factor
+              frozen (``precond_fn=model.precond_state``), launches counted.
+    ``train_loop_implicit``  ``train_using_adam_and_update`` for 10 steps at
+              K = 5 through B3, a native cover-tree update at resolution 0.15
+              each chunk re-padded by ``assign_clusters``, the metrics (first
+              8192 test points), parameter and CG-statistics callbacks at
+              ``record_step=5``; launches read apart for the steps, the
+              callbacks and ``update_fn``.
+    ``check_train_implicit_jax``  B3's first-step CG steps within max(3, 5 %)
+              of the JAX package's (``JAX_IMPLICIT_TRAIN_STEP0``, from
+              ``tests/jax_implicit_train_reference.py`` on the CPU), and JAX's
+              loss and gradient norms within 2x the fp32 plain route's gap
+              from fp64.
 
 Bounds (``bound_parts``): the least time of an fp32-accurate result, the
 smaller of the fp32 FMA time and three TF32 passes on the tensor cores, then
@@ -253,6 +283,38 @@ LOOP_ITERATIONS = 100
 LOOP_RECORD_STEP = 25
 LOOP_SEED = 3
 METRICS_BATCH = 8192
+# Matrix-free training (ImplicitCGGP on the matrix-free workload above):
+# batches of 2048 training points, 5 probes, adam(0.01) from the init
+# parameters; each step solves a fused [u | 5 trace probes | 5 logdet probes
+# | Kmn] block of 2059 rows at M = 10240, forward and backward.
+IMPLICIT_TRAIN_ROWS = 1 + 2 * TRAIN_PROBES + TRAIN_BATCH
+IMPLICIT_TRAIN_WARMUP = 1
+IMPLICIT_TRAIN_STEPS = 5
+IMPLICIT_TRAIN_BATCH_SEED = 4  # batch indices: a CPU generator, drawn up front
+IMPLICIT_TRAIN_PROBE_SEED = 5  # the probes: a generator on the card, reseeded per phase
+# The float64 yardstick of the first step: relative threshold 1e-12 (the
+# residual of each row within 1e-6 of its right-hand side's norm), a cap it
+# must stop before.
+IMPLICIT_REF_THRESHOLD = 1e-12
+IMPLICIT_REF_MAX_CG = 5000
+IMPLICIT_MULTI_K = 5
+IMPLICIT_LOOP_ITERATIONS = 10
+IMPLICIT_LOOP_RECORD_STEP = 5
+IMPLICIT_SELECT_RES = 0.15  # the committed selection's resolution
+IMPLICIT_METRICS_POINTS = 8192
+# The JAX package's fp32 values for the first matrix-free training step (the
+# train_implicit_pallas configuration on the blocked XLA route), on the CPU,
+# from tests/jax_implicit_train_reference.py fed this script's probes and
+# batch indices (chiprun_out/implicit_train_step0.npz; their sha256 below):
+# the loss, the gradient norms and the forward and backward CG steps (jax
+# 0.9.0, full batch, 395-562 s on 8 CPU cores).
+JAX_IMPLICIT_TRAIN_STEP0 = {
+    "probes_sha256": "33861cb6185f628738eef0d1ca4e9170dc6628e9b41bbd474d4af96b5b5f0013",
+    "batch_index_sha256": "29b7633e9aed9630e90984d553dbc1dc89d8e8911c72a43702d6c657fee9e1cb",
+    "loss": -23030.44140625,
+    "grad_norms": {"kernel/variance": 3438.0, "kernel/lengthscales": 5791.760855517569,
+                   "likelihood/variance": 118906.96875},
+    "cg_steps": [230, 81], "converged": [True, True]}
 _T0 = time.monotonic()
 
 
@@ -929,6 +991,490 @@ def e2e_phases(ctx) -> None:
             "loop_steps": loop_steps})
 
 
+def implicit_training_phases(ctx) -> None:
+    """The matrix-free training phases (``setup_train_implicit``,
+    ``reference_train_implicit``, ``train_implicit_pallas``,
+    ``train_implicit_xla``, ``train_multi_implicit``,
+    ``train_loop_implicit``, ``check_train_implicit_jax``) on the
+    matrix-free workload: ``ctx`` carries the card, the model factory
+    ``make_implicit(use_pallas, threshold, max_cg)``, the fp32 parameters at
+    M = 9576 padded to 10240, the data splits (numpy), the B3 record of the
+    ``kernels`` line (which gains the ``implicit_*`` counts) and B3's
+    R = 2059 case.  Every solve, forward or backward, is read through a
+    wrapper of ``ops.cg_implicit._implicit_cg_impl``."""
+    import cggp_tpu_torch.ops.cg_implicit as cg_implicit_module
+    from cggp_tpu_torch.ops.cg import SpectralPreconditioner
+    from cggp_tpu_torch.ops.cg_implicit import blocked_kuu_matvec, matvec_vjp
+    from cggp_tpu_torch.ops.logdet import rademacher
+    from cggp_tpu_torch.ops.pallas_gram import gram_matvec, kuu_matvec
+    from cggp_tpu_torch.selection import covertree_update_inducing_parameters
+    from cggp_tpu_torch.training.optimize import (adam, create_monitor, make_adam_multi_step,
+                                                  make_adam_step, make_cg_stats_callback,
+                                                  make_metrics_callback, make_param_callback,
+                                                  train_using_adam_and_update)
+
+    device, card_line, make_implicit = ctx["device"], ctx["card_line"], ctx["make_implicit"]
+    iparams, b3 = ctx["params"], ctx["gram_record"]
+    x_train, y_train, x_test, y_test = ctx["data"]
+    m_pad = iparams["inducing_points"].shape[0]
+    n_train = x_train.shape[0]
+    gram_mb = 4.0 * m_pad * m_pad / 1e6  # one [M, M] fp32 buffer
+
+    def read_counts():
+        return {"kuu_matvec": kuu_matvec.launches, "gram_matvec": gram_matvec.launches}
+
+    def zero_counts():
+        kuu_matvec.launches = gram_matvec.launches = 0
+
+    solves = []
+    impl = cg_implicit_module._implicit_cg_impl
+
+    def recording(matvec, precond_state, rhs, *limits):
+        solution, stats = impl(matvec, precond_state, rhs, *limits)
+        solves.append({"rows": int(rhs.shape[0]), "stats": stats})
+        return solution, stats
+
+    def steps_of(records):
+        return [(int(r["stats"].steps), bool(r["stats"].converged)) for r in records]
+
+    def want_launches(use_pallas, records):
+        return {"kuu_matvec": sum(k + 1 for k, _ in steps_of(records)) if use_pallas else 0,
+                "gram_matvec": 0}
+
+    def finite_params(p):
+        return all(bool(torch.isfinite(v).all()) for sub in p.values()
+                   for v in (sub.values() if isinstance(sub, dict) else [sub]))
+
+    def step_breakdown(ph, model, record, launches):
+        """Where a B3 training step's time goes, from the device times of
+        its parts at the path's shapes (CUDA events, 3-5 calls each) times
+        how often a step runs them: B3 (its launches), the preconditioner
+        apply (once per CG step and solve start), the pivoted-Cholesky build,
+        the blocked matvec's VJP at the solution, the KL's two blocked
+        matvecs (R = 1 and 5: panel builds, each again in the backward
+        pass); the rest (row updates, dots, the stop rule's host read per
+        CG step, the ELBO's small kernels, autograd) is the remainder."""
+        kernel, kp, z = model.kernel, iparams["kernel"], iparams["inducing_points"]
+        lam = model.diag_variance(iparams)[:, 0]
+        mask = iparams["inducing_mask"][:, 0]
+        gen = torch.Generator(device=device).manual_seed(6)
+        rows = torch.randn(IMPLICIT_TRAIN_ROWS, m_pad, generator=gen, device=device) * mask
+        state = model.precond_state(iparams)
+        needs = (True,) * (len(kp) + 2)
+        zeros = torch.zeros_like(lam)
+        ms = {"b3": b3["implicit_train_ms"],
+              "precond_apply": event_ms(ph, lambda: SpectralPreconditioner.apply(state, rows),
+                                        reps=5),
+              "pivchol_build": event_ms(ph, lambda: model.precond_state(iparams), reps=3),
+              "vjp_at_solution": event_ms(ph, lambda: matvec_vjp(
+                  model._matvec, kp, z, lam, mask, rows, rows, needs), reps=3),
+              "blocked_matvec_r1": event_ms(ph, lambda: blocked_kuu_matvec(
+                  kernel, kp, z, zeros, rows[:1], IMPLICIT_BLOCK, mask), reps=3),
+              "blocked_matvec_r2059": event_ms(ph, lambda: blocked_kuu_matvec(
+                  kernel, kp, z, lam, rows, IMPLICIT_BLOCK, mask), reps=3)}
+        steps = IMPLICIT_TRAIN_STEPS
+        cg_steps = sum(record["cg_steps_forward"]) + sum(record["cg_steps_backward"])
+        per_step = {"b3": launches["kuu_matvec"] / steps * ms["b3"],
+                    "precond_apply": (cg_steps / steps + 2) * ms["precond_apply"],
+                    "pivchol_build": ms["pivchol_build"],
+                    "vjp_at_solution": ms["vjp_at_solution"],
+                    "kl_matvecs": 4 * ms["blocked_matvec_r1"]}
+        per_step["rest"] = record["ms_per_step"] - sum(per_step.values())
+        return {"device_ms": ms, "ms_per_step": per_step,
+                "share_of_step": {k: v / record["ms_per_step"] for k, v in per_step.items()},
+                "note": "KL matvecs counted as 4 R <= 5 blocked matvecs a step (2 forward, "
+                        "2 rebuilt in the backward pass)"}
+
+    cg_implicit_module._implicit_cg_impl = recording
+    try:
+        with Phase("setup_train_implicit", 60) as ph:
+            xt = torch.as_tensor(x_train, dtype=torch.float32, device=device)
+            yt = torch.as_tensor(y_train, dtype=torch.float32, device=device)
+            cpu_gen = torch.Generator().manual_seed(IMPLICIT_TRAIN_BATCH_SEED)
+            batch_index = torch.stack(
+                [torch.randperm(n_train, generator=cpu_gen)[:TRAIN_BATCH]
+                 for _ in range(1 + IMPLICIT_TRAIN_WARMUP + IMPLICIT_TRAIN_STEPS
+                                + 2 * IMPLICIT_MULTI_K)])
+            index_dev = batch_index.to(device)
+            batches = [(xt[i], yt[i]) for i in index_dev[:1 + IMPLICIT_TRAIN_WARMUP
+                                                       + IMPLICIT_TRAIN_STEPS]]
+            chunks = index_dev[1 + IMPLICIT_TRAIN_WARMUP + IMPLICIT_TRAIN_STEPS:].reshape(
+                2, IMPLICIT_MULTI_K, TRAIN_BATCH)
+            batch0_64 = tuple(t.double() for t in batches[0])
+            params64 = {k: ({kk: vv.double() for kk, vv in v.items()} if isinstance(v, dict)
+                            else v.double()) for k, v in iparams.items()}
+
+            def probe_gen():
+                return torch.Generator(device=device).manual_seed(IMPLICIT_TRAIN_PROBE_SEED)
+
+            # The first step's probes as the ELBO draws them (trace probes,
+            # then logdet probes), kept with the batch for the JAX reference.
+            gen = probe_gen()
+            step0_probes = np.stack([rademacher(gen, (TRAIN_PROBES, m_pad),
+                                                torch.float32).cpu().numpy() for _ in range(2)])
+            probes_sha256 = hashlib.sha256(step0_probes.tobytes()).hexdigest()
+            batch_sha256 = hashlib.sha256(batch_index[0].numpy().tobytes()).hexdigest()
+            out_dir = ROOT / "chiprun_out"
+            out_dir.mkdir(exist_ok=True)
+            np.savez(out_dir / "implicit_train_step0.npz", probes=step0_probes,
+                     batch_index=batch_index[0].numpy())
+            emit({"phase": "setup_train_implicit", "m_pad": int(m_pad), "rows": IMPLICIT_TRAIN_ROWS,
+                  "batch": TRAIN_BATCH, "steps": IMPLICIT_TRAIN_STEPS,
+                  "warmup": IMPLICIT_TRAIN_WARMUP, "lr": TRAIN_LR, "probes_sha256": probes_sha256,
+                  "batch_index_sha256": batch_sha256, "wall_s": ph.elapsed()})
+
+        # The first step in float64 on the plain route at a tight threshold,
+        # and in float32 on the plain route: the yardstick of B3's gap.
+        with Phase("reference_train_implicit", 300) as ph:
+            solves.clear()
+            loss64, grads64 = loss_and_grads(
+                make_implicit(False, IMPLICIT_REF_THRESHOLD, IMPLICIT_REF_MAX_CG), params64,
+                batch0_64, probe_gen())
+            ph.wait()
+            steps64 = steps_of(solves)
+            require(len(steps64) == 2 and all(c and k < IMPLICIT_REF_MAX_CG for k, c in steps64),
+                    f"reference_train_implicit: fp64 solves {steps64}")
+            solves.clear()
+            loss32, grads32 = loss_and_grads(make_implicit(False), iparams, batches[0],
+                                             probe_gen())
+            ph.wait()
+            steps32 = steps_of(solves)
+            xla_gap = relative_gaps(loss32, grads32, loss64, grads64)
+            emit({"phase": "reference_train_implicit", "fp64_threshold": IMPLICIT_REF_THRESHOLD,
+                  "fp64": {"loss": float(loss64), "cg_steps": [k for k, _ in steps64],
+                           **{f"|d {n}|": float(torch.linalg.vector_norm(grads64[n]))
+                              for n in TRAINABLE}},
+                  "fp32_plain": {"loss": float(loss32), "cg_steps": [k for k, _ in steps32]},
+                  "xla_fp32_gap": xla_gap, "wall_s": ph.elapsed()})
+
+        trained = {}
+        for route, use_pallas in (("pallas", True), ("xla", False)):
+            name = f"train_implicit_{route}"
+            with Phase(name, 240) as ph:
+                model = make_implicit(use_pallas)
+                solves.clear()
+                zero_counts()
+                loss0, grads0 = loss_and_grads(model, iparams, batches[0], probe_gen())
+                ph.wait()
+                step0 = steps_of(solves)
+                require(read_counts() == want_launches(use_pallas, solves),
+                        f"{name}: first-step launches {read_counts()}, solves {step0}")
+                step = make_adam_step(model.training_loss, adam(TRAIN_LR),
+                                      model.trainable_mask(iparams))
+                p, opt = iparams, adam(TRAIN_LR).init(iparams)
+                gen = probe_gen()
+                torch.cuda.reset_peak_memory_stats()
+                before_mb = torch.cuda.memory_allocated() / 1e6
+                for batch in batches[1:1 + IMPLICIT_TRAIN_WARMUP]:
+                    p, opt, _ = step(p, opt, batch, gen)
+                ph.wait()
+                peak_mb = torch.cuda.max_memory_allocated() / 1e6
+                solves.clear()
+                zero_counts()
+                t0 = time.monotonic()
+                losses = []
+                for batch in batches[1 + IMPLICIT_TRAIN_WARMUP:]:
+                    p, opt, loss = step(p, opt, batch, gen)
+                    losses.append(loss)
+                ph.wait()
+                window_s = time.monotonic() - t0
+                launches = read_counts()
+                window = steps_of(solves)
+                require(len(window) == 2 * IMPLICIT_TRAIN_STEPS
+                        and all(r["rows"] == IMPLICIT_TRAIN_ROWS for r in solves),
+                        f"{name}: {len(window)} solves of rows {[r['rows'] for r in solves]}")
+                require(launches == want_launches(use_pallas, solves),
+                        f"{name}: launches {launches}, want {want_launches(use_pallas, solves)}")
+                require(all(c for _, c in step0 + window), f"{name}: a solve did not converge")
+                losses = [float(v) for v in losses]
+                require(all(math.isfinite(v) for v in losses) and finite_params(p),
+                        f"{name}: non-finite loss or parameters {losses}")
+                gaps = relative_gaps(loss0, grads0, loss64, grads64)
+                gap_over_xla = {k: (gaps[k] / xla_gap[k] if xla_gap[k] > 0
+                                    else 0.0 if gaps[k] == 0 else math.inf) for k in gaps}
+                if use_pallas:
+                    require(all(math.isfinite(v) and v <= 2.0 for v in gap_over_xla.values()),
+                            f"{name}: first step {gaps} from fp64, plain fp32 {xla_gap}")
+                cg_total = sum(k for k, _ in window)
+                record = {"phase": name, "use_pallas": use_pallas, "m_pad": int(m_pad),
+                          "rows": IMPLICIT_TRAIN_ROWS, "steps": IMPLICIT_TRAIN_STEPS,
+                          "window_s": window_s,
+                          "steps_per_s": IMPLICIT_TRAIN_STEPS / window_s,
+                          "ms_per_step": window_s * 1e3 / IMPLICIT_TRAIN_STEPS,
+                          "launches": launches,
+                          "cg_steps_forward": [k for k, _ in window[0::2]],
+                          "cg_steps_backward": [k for k, _ in window[1::2]],
+                          "ms_per_cg_step": window_s * 1e3 / cg_total,
+                          "peak_mb_over_a_step": peak_mb, "allocated_mb_before_the_step": before_mb,
+                          "one_m_by_m_fp32_buffer_mb": gram_mb,
+                          "loss_first": losses[0], "loss_last": losses[-1],
+                          "step0": {"loss": float(loss0),
+                                    **{f"|d {n}|": float(torch.linalg.vector_norm(grads0[n]))
+                                       for n in TRAINABLE},
+                                    "cg_steps": [k for k, _ in step0],
+                                    "gap_vs_fp64": gaps, "xla_fp32_gap_vs_fp64": xla_gap,
+                                    "gap_over_xla_fp32_gap": gap_over_xla},
+                          "tolerance": "first-step loss and each gradient: the relative gap "
+                                       "from fp64 at most 2x the fp32 plain route's",
+                          "nvidia_smi": card_line, "wall_s": ph.elapsed()}
+                if use_pallas:
+                    record["breakdown"] = step_breakdown(ph, model, record, launches)
+                trained[route] = {"record": record, "step0": step0, "launches": launches,
+                                  "steps": len(window) // 2}
+                emit(record)
+        # The kernel route solves the same systems: its first step's forward
+        # and backward steps within max(3, 5 %) of the plain route's.
+        for (a, _), (b, _) in zip(trained["pallas"]["step0"], trained["xla"]["step0"]):
+            require(abs(a - b) <= max(3, 0.05 * b),
+                    f"train_implicit: first-step steps {trained['pallas']['step0']} on B3, "
+                    f"{trained['xla']['step0']} on the plain route")
+
+        with Phase("train_multi_implicit", 240) as ph:
+            model = make_implicit(True)
+            mask = model.trainable_mask(iparams)
+            multi_step = make_adam_multi_step(model.training_loss, adam(TRAIN_LR), (xt, yt), mask)
+
+            def frozen_loss(p, batch, key, state):
+                return model.training_loss(p, batch, key, precond_override=state)
+
+            frozen_step = make_adam_multi_step(frozen_loss, adam(TRAIN_LR), (xt, yt), mask,
+                                               precond_fn=model.precond_state)
+            solves.clear()
+            zero_counts()
+            t0 = time.monotonic()
+            p, opt, losses0 = multi_step(iparams, adam(TRAIN_LR).init(iparams), chunks[0],
+                                         probe_gen())
+            float(losses0[-1])
+            ph.wait()
+            chunk0_s = time.monotonic() - t0
+            chunk0_launches, chunk0_steps = read_counts(), steps_of(solves)
+            require(chunk0_launches == want_launches(True, solves),
+                    f"train_multi_implicit: chunk launches {chunk0_launches}, "
+                    f"solves {chunk0_steps}")
+            single = make_adam_step(model.training_loss, adam(TRAIN_LR), mask)
+            q, q_opt, q_gen, single_losses = iparams, adam(TRAIN_LR).init(iparams), probe_gen(), []
+            for row in chunks[0]:
+                q, q_opt, loss = single(q, q_opt, (xt[row], yt[row]), q_gen)
+                single_losses.append(loss)
+            ph.wait()
+            single_losses = torch.stack(single_losses)
+            chunk_gap = {"loss_rel": float(((losses0 - single_losses).abs()
+                                            / single_losses.abs()).max()),
+                         "bitwise_equal": bool(torch.equal(losses0, single_losses))}
+            for leaf in TRAINABLE:
+                section, key = leaf.split("/")
+                a, b = p[section][key], q[section][key]
+                chunk_gap[leaf] = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                chunk_gap["bitwise_equal"] &= bool(torch.equal(a, b))
+            require(all(v <= MULTI_CHUNK_RTOL for k, v in chunk_gap.items()
+                        if k != "bitwise_equal"),
+                    f"train_multi_implicit: chunk vs {IMPLICIT_MULTI_K} single steps {chunk_gap}")
+            del q, q_opt
+            # One more chunk with the factor built once, from its entry
+            # parameters, and frozen for its steps.
+            solves.clear()
+            zero_counts()
+            t0 = time.monotonic()
+            p, opt, losses1 = frozen_step(p, opt, chunks[1], probe_gen())
+            float(losses1[-1])
+            ph.wait()
+            frozen_s = time.monotonic() - t0
+            frozen_launches, frozen_steps = read_counts(), steps_of(solves)
+            require(frozen_launches == want_launches(True, solves),
+                    f"train_multi_implicit: frozen launches {frozen_launches}, {frozen_steps}")
+            require(len(chunk0_steps) == len(frozen_steps) == 2 * IMPLICIT_MULTI_K
+                    and all(c for _, c in chunk0_steps + frozen_steps),
+                    f"train_multi_implicit: solves {chunk0_steps} / {frozen_steps}")
+            losses = torch.cat([losses0, losses1]).cpu()
+            require(bool(torch.isfinite(losses).all()) and finite_params(p),
+                    "train_multi_implicit: non-finite loss or parameters")
+            multi_record = {
+                "phase": "train_multi_implicit", "use_pallas": True, "k": IMPLICIT_MULTI_K,
+                "chunk_s": chunk0_s, "steps_per_s": IMPLICIT_MULTI_K / chunk0_s,
+                "frozen_chunk_s": frozen_s, "frozen_steps_per_s": IMPLICIT_MULTI_K / frozen_s,
+                "launches": chunk0_launches, "frozen_launches": frozen_launches,
+                "cg_steps_forward": [k for k, _ in chunk0_steps[0::2]],
+                "cg_steps_backward": [k for k, _ in chunk0_steps[1::2]],
+                "frozen_cg_steps_forward": [k for k, _ in frozen_steps[0::2]],
+                "frozen_cg_steps_backward": [k for k, _ in frozen_steps[1::2]],
+                "losses": [float(v) for v in losses],
+                "chunk_vs_single_steps": chunk_gap,
+                "tolerance": f"chunk vs {IMPLICIT_MULTI_K} make_adam_step calls: relative "
+                             f"{MULTI_CHUNK_RTOL}",
+                "nvidia_smi": card_line, "wall_s": ph.elapsed()}
+            emit(multi_record)
+
+        with Phase("train_loop_implicit", 300) as ph:
+            model = make_implicit(True)
+            logdir = Path(tempfile.mkdtemp(prefix="cggp_train_loop_implicit_"))
+            spent = {"update_s": 0.0, "update_calls": 0, "callbacks_s": 0.0,
+                     "callback_calls": 0, "training_steps": 0, "m_after_update": []}
+            outside = {part: {"launches": dict.fromkeys(read_counts(), 0), "solves": []}
+                       for part in ("update_fn", "callbacks")}
+
+            def attributed(part, fn, *args):
+                before, first = read_counts(), len(solves)
+                out = fn(*args)
+                for key, count in read_counts().items():
+                    outside[part]["launches"][key] += count - before[key]
+                outside[part]["solves"].extend(solves[first:])
+                return out
+
+            def timed(fn):
+                def wrapped(step, p):
+                    t0 = time.monotonic()
+                    out = attributed("callbacks", fn, step, p)
+                    spent["callbacks_s"] += time.monotonic() - t0
+                    spent["callback_calls"] += 1
+                    return out
+                return wrapped
+
+            def update_fn(p):
+                t0 = time.monotonic()
+
+                def update(p):
+                    iv_new, u_new, counts_new = covertree_update_inducing_parameters(
+                        (xt, yt), IMPLICIT_SELECT_RES, backend="native")
+                    spent["m_after_update"].append(int(iv_new.shape[0]))
+                    return model.assign_clusters(p, iv_new, u_new, counts_new)
+                out = attributed("update_fn", update, p)
+                spent["update_s"] += time.monotonic() - t0
+                spent["update_calls"] += 1
+                return out
+
+            def step_loss(p, batch, key):
+                spent["training_steps"] += 1
+                return model.training_loss(p, batch, key)
+
+            test_data = tuple(torch.as_tensor(a[:IMPLICIT_METRICS_POINTS], dtype=torch.float32,
+                                              device=device) for a in (x_test, y_test))
+            monitor = create_monitor(
+                str(logdir), timed(make_metrics_callback(model, (xt, yt), test_data,
+                                                         batch_size=METRICS_BATCH)),
+                timed(make_param_callback(model)), record_step=IMPLICIT_LOOP_RECORD_STEP,
+                use_tensorboard=False)
+            monitor.add_callback("cg", timed(make_cg_stats_callback(model, (xt, yt),
+                                                                    batch_size=TRAIN_BATCH)),
+                                 record_step=IMPLICIT_LOOP_RECORD_STEP)
+            solves.clear()
+            ph.wait()
+            zero_counts()
+            t0 = time.monotonic()
+            trained_loop = train_using_adam_and_update(
+                iparams, step_loss, (xt, yt), IMPLICIT_LOOP_ITERATIONS, TRAIN_BATCH, TRAIN_LR,
+                torch.Generator(device=device).manual_seed(LOOP_SEED), update_fn=update_fn,
+                trainable_mask=model.trainable_mask(iparams), monitor=monitor,
+                scalar_record_step=IMPLICIT_LOOP_RECORD_STEP, steps_per_call=IMPLICIT_MULTI_K)
+            ph.wait()
+            loop_s = time.monotonic() - t0
+            loop_launches = {"all": read_counts()}
+            loop_solves = {"all": list(solves)}
+            for part, got in outside.items():
+                loop_launches[part] = got["launches"]
+                loop_solves[part] = got["solves"]
+            loop_launches["steps"] = {k: v - sum(loop_launches[part][k] for part in outside)
+                                      for k, v in loop_launches["all"].items()}
+            outside_ids = {id(r) for part in outside for r in loop_solves[part]}
+            loop_solves["steps"] = [r for r in solves if id(r) not in outside_ids]
+            logs = {name: list(np.load(str(logdir / f"{name}.logs.npy"), allow_pickle=True))
+                    for name in ("metrics", "params", "cg", "train")}
+            shutil.rmtree(logdir, ignore_errors=True)
+            label_steps = list(range(0, IMPLICIT_LOOP_ITERATIONS, IMPLICIT_LOOP_RECORD_STEP))
+            for name in ("metrics", "params", "cg"):
+                require([int(e["step"]) for e in logs[name]] == label_steps,
+                        f"train_loop_implicit: {name} logged at {[e['step'] for e in logs[name]]}")
+            for name, keys in (("metrics", ("test/rmse", "test/nlpd", "train/elbo")),
+                               ("params", ("kernel/variance", "likelihood/variance"))):
+                for key in keys:
+                    values = [float(e[key]) for e in logs[name]]
+                    require(all(math.isfinite(v) for v in values), f"train_loop_implicit: {key}")
+                    require(all(a != b for a, b in zip(values, values[1:])),
+                            f"train_loop_implicit: {key} frozen across steps {values}")
+            unconverged = [int(e["cg/unconverged"]) for e in logs["cg"]]
+            require(not any(unconverged), f"train_loop_implicit: cg/unconverged {unconverged}")
+            require(all(c for _, c in steps_of(loop_solves["all"])),
+                    "train_loop_implicit: a solve did not converge")
+            require(spent["update_calls"] == IMPLICIT_LOOP_ITERATIONS // IMPLICIT_MULTI_K,
+                    f"train_loop_implicit: update_fn ran {spent['update_calls']} times")
+            require(spent["training_steps"] == IMPLICIT_LOOP_ITERATIONS,
+                    f"train_loop_implicit: {spent['training_steps']} steps")
+            require(len(loop_solves["steps"]) == 2 * IMPLICIT_LOOP_ITERATIONS,
+                    f"train_loop_implicit: {len(loop_solves['steps'])} solves in the steps")
+            m_loop = trained_loop["inducing_points"].shape[0]
+            require(m_loop % IMPLICIT_BLOCK == 0 and finite_params(trained_loop),
+                    f"train_loop_implicit: M {m_loop} after re-clustering")
+            for part in ("all", "steps", *outside):
+                want = want_launches(True, loop_solves[part])
+                require(loop_launches[part] == want,
+                        f"train_loop_implicit: launches in {part} {loop_launches[part]}, "
+                        f"want {want}")
+            steps_only_s = loop_s - spent["update_s"] - spent["callbacks_s"]
+            emit({"phase": "train_loop_implicit", "use_pallas": True,
+                  "iterations": IMPLICIT_LOOP_ITERATIONS, "steps_per_call": IMPLICIT_MULTI_K,
+                  "record_step": IMPLICIT_LOOP_RECORD_STEP, "m_pad_after": int(m_loop),
+                  "wall_s_run": loop_s, **spent, "steps_s": steps_only_s,
+                  "steps_per_s_excluding_callbacks_and_update":
+                      IMPLICIT_LOOP_ITERATIONS / steps_only_s,
+                  "launches": loop_launches,
+                  "cg_solves": {part: len(sv) for part, sv in loop_solves.items()},
+                  "cg_steps_steps": [k for k, _ in steps_of(loop_solves["steps"])],
+                  "metrics": [{k: (int(v) if k == "step" else float(v)) for k, v in e.items()}
+                              for e in logs["metrics"]],
+                  "cg": [{k: (int(v) if k == "step" else float(v)) for k, v in e.items()}
+                         for e in logs["cg"]],
+                  "train_loss": [float(e["loss"]) for e in logs["train"] if "loss" in e],
+                  "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+    finally:
+        cg_implicit_module._implicit_cg_impl = impl
+
+    b3.update({
+        "implicit_train_launches": trained["pallas"]["launches"]["kuu_matvec"],
+        "implicit_train_steps": trained["pallas"]["steps"],
+        "implicit_multi_launches": chunk0_launches["kuu_matvec"]
+        + frozen_launches["kuu_matvec"],
+        "implicit_multi_steps": (len(chunk0_steps) + len(frozen_steps)) // 2,
+        "implicit_loop_launches": {part: loop_launches[part]["kuu_matvec"]
+                                   for part in ("steps", "callbacks", "update_fn")},
+        "implicit_loop_steps": spent["training_steps"]})
+
+    # The JAX package's first step (JAX_IMPLICIT_TRAIN_STEP0, on the CPU from
+    # this run's probes and batch): B3's forward and backward steps within
+    # max(3, 5 %) of JAX's, and JAX's fp32 loss and gradient norms no further
+    # from this run's fp64 values than twice the port's fp32 plain route.
+    with Phase("check_train_implicit_jax", 30):
+        ref = JAX_IMPLICIT_TRAIN_STEP0
+        require(ref is not None, "no JAX reference for the first matrix-free training step")
+        require(probes_sha256 == ref["probes_sha256"]
+                and batch_sha256 == ref["batch_index_sha256"],
+                "the first step's probes or batch are not those JAX's values were taken with")
+        step0 = trained["pallas"]["step0"]
+        for (got, _), want, label in zip(step0, ref["cg_steps"], ("forward", "backward")):
+            require(abs(got - want) <= max(3, 0.05 * want),
+                    f"train_implicit_pallas: first-step {label} steps {got} vs JAX {want}")
+        jax_gap = abs(ref["loss"] - float(loss64)) / abs(float(loss64))
+        require(jax_gap <= 2.0 * xla_gap["loss"],
+                f"JAX's fp32 loss {ref['loss']} is {jax_gap} from fp64, the port's fp32 plain "
+                f"route {xla_gap['loss']}")
+        # A norm's gap is at most its vector's, so the plain route's vector
+        # gaps bound the norms' from above.
+        norms64 = {n: float(torch.linalg.vector_norm(grads64[n])) for n in TRAINABLE}
+        jax_grad_gap = {n: abs(ref["grad_norms"][n] - norms64[n]) / norms64[n] for n in TRAINABLE}
+        require(all(jax_grad_gap[n] <= 2.0 * xla_gap[n] for n in TRAINABLE),
+                f"JAX's fp32 gradient norms are {jax_grad_gap} from fp64, the port's fp32 "
+                f"plain route's gradients {xla_gap}")
+        port = trained["pallas"]["record"]["step0"]
+        emit({"phase": "check_train_implicit_jax", "jax_cpu_fp32": ref,
+              "port_b3": {"loss": port["loss"], "cg_steps": port["cg_steps"],
+                          **{f"|d {n}|": port[f"|d {n}|"] for n in TRAINABLE}},
+              "jax_loss_gap_vs_fp64": jax_gap, "xla_fp32_loss_gap_vs_fp64": xla_gap["loss"],
+              "jax_grad_norm_gap_vs_fp64": jax_grad_gap, "xla_fp32_grad_gap_vs_fp64":
+                  {n: xla_gap[n] for n in TRAINABLE},
+              "port_b3_vs_jax_loss_rel": abs(port["loss"] - ref["loss"]) / abs(ref["loss"]),
+              "tolerance": "B3's first-step forward and backward steps within max(3, 5 %) of "
+                           "JAX's; JAX's loss and gradient norms within 2x the fp32 plain "
+                           "route's gap from fp64"})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1390,7 +1936,7 @@ def main() -> int:
             bwd = [(int(s["stats"].steps), bool(s["stats"].converged)) for s in solves[1::2]]
             require(all(int(s["rhs"].shape[0]) == train_rows for s in solves),
                     f"{name}: a solve's block is not [{train_rows}, {m}]")
-            # B3 is off the dense path (matrix-free training is a later slice).
+            # B3 is off the dense path (it carries the matrix-free phases).
             want = {"pallas_cg_solve": 0, "pallas_matvec": 0, "gram_matvec": 0, "kuu_matvec": 0}
             if impl == "pallas_resident":
                 want["pallas_cg_solve"] = 2 * steps_run
@@ -1566,8 +2112,8 @@ def main() -> int:
                 "test_data": (x_test, y_test), "selection_path": selection_path,
                 "kernels": kernels})
 
-    # B3 is off the dense training path (matrix-free training is a later
-    # slice): its launches read in the three training windows, all steps.
+    # B3 is off the dense training path (the matrix-free model trains in its
+    # own phases): its launches read in the three dense windows, all steps.
     b3_train = {"train_launches": sum(t["launches"]["gram_matvec"] + t["launches"]["kuu_matvec"]
                                       for t in trained.values()),
                 "train_steps": sum(t["steps"] for t in trained.values())}
@@ -1582,11 +2128,12 @@ def main() -> int:
             iv, u, counts = sel["iv"], sel["u"], sel["counts"]
         require(iv.shape == (IMPLICIT_M, 3), f"implicit inducing set shape {iv.shape}")
 
-        def make_implicit(use_pallas, threshold=IMPLICIT_THRESHOLD):
+        def make_implicit(use_pallas, threshold=IMPLICIT_THRESHOLD, max_cg=IMPLICIT_MAX_CG):
             return ImplicitCGGP(kernel=Matern32(), num_data=n_train, block=IMPLICIT_BLOCK,
                                 precondition="pivchol", precond_rank=128,
                                 relative_threshold=True, error_threshold=threshold,
-                                max_cg_iterations=IMPLICIT_MAX_CG, use_pallas=use_pallas)
+                                max_cg_iterations=max_cg, num_probes=TRAIN_PROBES,
+                                use_pallas=use_pallas)
 
         iparams = make_implicit(True).init_params(iv, pseudo_u=u, cluster_counts=counts,
                                                   dtype=torch.float32, device=device)
@@ -1702,6 +2249,20 @@ def main() -> int:
                             "bitwise_equal": same, "aligned": b3_loader(p, rows, m, 1),
                             "offset": b3_loader(p_off, rows, m, 1)}
                 del p_off
+        # The matrix-free training shape: a step's fused block of 2059 rows.
+        p = (torch.randn(IMPLICIT_TRAIN_ROWS, m, generator=gen, device=device)
+             * imask).contiguous()
+        p_abs = p.abs()
+        train_case = b3_case(
+            f"kuu_matvec R={IMPLICIT_TRAIN_ROWS} (training)",
+            lambda: kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
+            lambda: kuu_matvec_plain(iz_scaled, ilam, p, ivar, "matern32"),
+            lambda: kuu_matvec_plain(iz_scaled, ilam, p_abs, ivar, "matern32"),
+            (m, m, 3, IMPLICIT_TRAIN_ROWS), "matern32",
+            4.0 * (m * 3 + m + 1 + 2 * IMPLICIT_TRAIN_ROWS * m), reps=5,
+            loader=b3_loader(p, IMPLICIT_TRAIN_ROWS, m, 1),
+            exact=lambda p=p: kuu_exact(p), gate_fp64=True)
+        del p, p_abs
         xg = xq[:R_BATCH].contiguous()
         v = (torch.randn(m, 1, generator=gen, device=device) * imask[:, None]).contiguous()
         v_abs = v.abs()
@@ -1734,7 +2295,10 @@ def main() -> int:
         kernels.setdefault("gram_matvec", {}).update({
             "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-            "bound_by": big["bound_by"], "library_ms": None})
+            "bound_by": big["bound_by"], "library_ms": None,
+            "implicit_train_ms": train_case["kernel_ms"],
+            "implicit_train_plain_ms": train_case["plain_ms"],
+            "implicit_train_bound_ms": train_case["bound_ms"]})
 
     # -- reference_implicit: the fp64 Cholesky posterior ----------------------
     with Phase("reference_implicit", 180) as ph:
@@ -1825,6 +2389,12 @@ def main() -> int:
             require(bool(np.all(np.abs(a - b) <= np.maximum(3, 0.05 * b))),
                     f"kernel route steps {a.tolist()} vs plain {b.tolist()} ({key})")
 
+    # -- matrix-free training through B3 and the blocked route ----------------
+    implicit_training_phases({"device": device, "card_line": card_line,
+                              "make_implicit": make_implicit, "params": iparams,
+                              "data": (x_train, y_train, x_test, y_test),
+                              "gram_record": kernels["gram_matvec"]})
+
     sources = {"pallas_matvec": ("cggp_tpu_torch/csrc/pallas_matvec.cu",
                                  "cggp_tpu/ops/pallas_matvec.py:65"),
                "pallas_cg_solve": ("cggp_tpu_torch/csrc/pallas_cg.cu",
@@ -1838,7 +2408,7 @@ def main() -> int:
          "bound_ms": kernels[name]["bound_ms"], "bound_by": kernels[name]["bound_by"],
          "library_ms": kernels[name]["library_ms"],
          **{k: v for k, v in kernels[name].items()
-            if k.startswith(("train_", "multi_", "loop_"))}}
+            if k.startswith(("train_", "multi_", "loop_", "implicit_"))}}
         for name in ("pallas_matvec", "pallas_cg_solve", "gram_matvec")]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -144,12 +144,21 @@ def test_config_dir_written_by_jax_serves_in_the_port(tmp_path):
 def test_unported_switches_raise(call):
     _, _, tmodel, tparams, xq = _models("xla", 1e-10, jnp.float64)
     x = torch.as_tensor(xq)
+    if call == "precondition":
+        # precondition="rff" is ported now (it raised here before): the
+        # sketch changes the solves' iterations, not what they serve.
+        rff = CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(1e-16),
+                   precondition="rff", precond_rank=16)
+        plain = CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(1e-16))
+        post = rff.posterior(tparams, solver="cg")
+        assert len(post.precond_state) == 3  # the spectral state of the sketch
+        for got, want in zip(predict_in_batches(rff, tparams, x, posterior_solver="cg"),
+                             predict_in_batches(plain, tparams, x, posterior_solver="cg")):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-8)
+        return
     with pytest.raises(NotImplementedError):
         if call == "solver_lanczos":
             tmodel.posterior(tparams, solver="lanczos")
-        elif call == "precondition":
-            CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(1e-6),
-                 precondition="rff")
         elif call == "capacity":
             # Capacity padding and the host re-clustering swaps are ported;
             # the fixed-capacity re-clustering inside a K-step chunk (the

@@ -165,26 +165,49 @@ def test_auto_resolves_to_cg_and_chol_is_refused():
 @pytest.mark.parametrize("call", ["lanczos", "rff", "elbo", "prior_kl", "cg_stats",
                                   "assign_clusters", "slq", "backward"])
 def test_unported_parts_raise(call):
+    """Named for the refusals of the serving slice.  Only ``lanczos`` (LOVE
+    serving, ROADMAP Queue A item 7) still raises; the other cases are
+    ported and run here on the same padded system (their parity with JAX is
+    tests/test_torch_implicit_training.py's)."""
     _, _, tmodel, tparams, xq = _models(None, False, 1e-10, jnp.float64)
     x = torch.as_tensor(xq)
-    with pytest.raises(NotImplementedError):
-        if call == "lanczos":
+    data = (x, x[:, :1])
+    gen = torch.Generator().manual_seed(0)
+    if call == "lanczos":
+        with pytest.raises(NotImplementedError):
             tmodel.posterior(tparams, solver="lanczos")
-        elif call == "rff":
-            ImplicitCGGP(kernel=Matern32(), precondition="rff").posterior(tparams, solver="cg")
-        elif call == "elbo":
-            tmodel.elbo(tparams, (x, x[:, :1]))
-        elif call == "prior_kl":
-            tmodel.prior_kl(tparams)
-        elif call == "cg_stats":
-            tmodel.cg_stats(tparams, (x, x[:, :1]))
-        elif call == "assign_clusters":
-            tmodel.assign_clusters(tparams, None, None, None)
-        elif call == "slq":
-            ImplicitCGGP(kernel=Matern32(), logdet_variant="slq")
-        else:
-            tparams["kernel"]["lengthscales"].requires_grad_()
-            tmodel.posterior(tparams, solver="cg")
+    elif call == "rff":
+        rff = ImplicitCGGP(kernel=Matern32(), num_data=400, error_threshold=1e-16,
+                           max_cg_iterations=200, block=BLOCK, precondition="rff",
+                           precond_rank=8)
+        exact = ImplicitCGGP(kernel=Matern32(), num_data=400, error_threshold=1e-16,
+                             max_cg_iterations=200, block=BLOCK)
+        np.testing.assert_allclose(rff.posterior(tparams, solver="cg").nu.numpy(),
+                                   exact.posterior(tparams, solver="cg").nu.numpy(),
+                                   rtol=0, atol=1e-8)
+    elif call == "elbo":
+        with pytest.raises(ValueError, match="generator"):
+            tmodel.elbo(tparams, data)
+        assert np.isfinite(float(tmodel.elbo(tparams, data, gen)))
+    elif call == "prior_kl":
+        assert np.isfinite(float(tmodel.prior_kl(tparams, gen)))
+    elif call == "cg_stats":
+        stats = tmodel.cg_stats(tparams, data, gen)
+        assert bool(stats.converged) and 0 < int(stats.steps) < 200
+    elif call == "assign_clusters":
+        z, u, counts, _ = _problem(seed=1)
+        new = tmodel.assign_clusters(tparams, z[:40], u[:40], counts[:40])
+        assert new["inducing_points"].shape == (64, 3)  # 40 re-padded to the block multiple
+        assert float(new["inducing_mask"].sum()) == 40
+    elif call == "slq":
+        slq = ImplicitCGGP(kernel=Matern32(), num_data=400, error_threshold=1e-10,
+                           max_cg_iterations=200, block=BLOCK, logdet_variant="slq")
+        assert np.isfinite(float(slq.elbo(tparams, data, gen)))
+    else:
+        ell = tparams["kernel"]["lengthscales"].clone().requires_grad_()
+        live = {**tparams, "kernel": {**tparams["kernel"], "lengthscales": ell}}
+        (grad,) = torch.autograd.grad(tmodel.posterior(live, solver="cg").nu.sum(), [ell])
+        assert grad.shape == ell.shape and bool(torch.isfinite(grad).all())
     with pytest.raises(ValueError):
         ImplicitCGGP(kernel=Matern32(), logdet_variant="exact")
 

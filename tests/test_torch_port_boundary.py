@@ -16,7 +16,7 @@ from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.kernels import Matern32
 from cggp_tpu_torch.selection import covertree_update_inducing_parameters
 from cggp_tpu_torch.training.batching import minibatch_index_iterator
-from cggp_tpu_torch.utils.store import params_from_numpy
+from cggp_tpu_torch.utils.store import load_posterior, params_from_numpy
 
 torch.set_num_threads(1)
 
@@ -50,7 +50,8 @@ def test_port_package_and_smoke_script_exist():
     assert (ROOT / "cggp_tpu_torch" / "csrc" / "pallas_matvec.cu").is_file()
     for module in ("selection/__init__", "selection/covertree", "selection/kmeans",
                    "selection/native", "selection/points", "selection/update",
-                   "training/batching", "training/monitor"):
+                   "training/batching", "training/monitor", "ops/rff", "ops/cg_implicit",
+                   "ops/logdet", "models/rowcg", "models/implicit", "utils/store"):
         assert ROOT / "cggp_tpu_torch" / f"{module}.py" in PORT_SOURCES, module
 
 
@@ -72,7 +73,8 @@ def test_native_source_includes_nothing_of_jax_or_the_jax_package(path):
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "cggp_init_params", "likelihood",
-                                   "params_from_numpy", "index_iterator", "covertree_update"])
+                                   "params_from_numpy", "index_iterator", "covertree_update",
+                                   "load_posterior"])
 def test_entry_points_without_a_card_raise_instead_of_using_the_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(1e-6))
@@ -88,6 +90,8 @@ def test_entry_points_without_a_card_raise_instead_of_using_the_cpu(entry, monke
             next(minibatch_index_iterator(0, 10, 4, 2))
         elif entry == "covertree_update":
             covertree_update_inducing_parameters((z, z[:, :1]), 0.5, backend="numpy")
+        elif entry == "load_posterior":
+            load_posterior("a-posterior-directory")  # the device is resolved before any read
         else:
             params_from_numpy({"pseudo_u": z})
     # Asking for the CPU works.
