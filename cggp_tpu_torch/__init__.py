@@ -20,7 +20,13 @@ preconditioner and the fused Gram-matvec kernel; inducing-point selection
 (the cover tree with its native C++ build, k-means on the device, OIPS,
 greedy, uniform, the update functions and re-clustering) and the training
 loop (``make_adam_multi_step``, ``train_using_adam_and_update``, the
-monitor and its callbacks).
+monitor and its callbacks); matrix-free ``ImplicitCGGP`` training (its
+custom-backward solve, the matrix-free logdets, the RFF preconditioner)
+and the config-dir / posterior store; and the exact GP: the dense ``GPR``
+and the matrix-free ``IterGPR`` (fused and chunked marginal likelihood,
+posterior and serving, through B3 with ``use_pallas=True``), with
+``train_full_batch_adam``, ``train_chunked_adam`` and data-bound
+``predict_in_batches``.
 
 Entry points default to ``device="cuda"`` and raise when no card is present
 unless the caller asks for ``device="cpu"``; they never fall back quietly.

@@ -42,12 +42,11 @@ import torch
 
 from cggp_tpu_torch.models.base import minibatch_scale
 from cggp_tpu_torch.models.clustergp import ClusterGP, _as_tensor
-from cggp_tpu_torch.ops.cg import CGStats, spectral_precond_state
-from cggp_tpu_torch.ops.cg_implicit import pad_inducing, pivoted_cholesky_kernel
+from cggp_tpu_torch.ops.cg import CGStats
+from cggp_tpu_torch.ops.cg_implicit import kernel_precond_state, pad_inducing
 from cggp_tpu_torch.ops.logdet import (make_matfree_eval_logdet,
                                        make_matfree_logdet_from_solves,
                                        make_matfree_slq_logdet, rademacher)
-from cggp_tpu_torch.ops.rff import rff_basis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,27 +91,8 @@ class RowSolveCGGP(ClusterGP):
     def _precond_state(self, kp, z, lam, mask=None):
         """Solver-state tuple for the solve, built from detached inputs;
         ``()`` = identity."""
-        if self.precondition is None:
-            return ()
-        with torch.no_grad():
-            kp, z, lam = {k: v.detach() for k, v in kp.items()}, z.detach(), lam.detach()
-            if mask is not None:
-                mask = mask.detach().reshape(-1)
-            if self.precondition == "pivchol":
-                # Pads keep the full constant K_diag; left unmasked, greedy
-                # pivoting would burn columns on no-op directions.
-                factor = pivoted_cholesky_kernel(self.kernel, kp, z, self.precond_rank,
-                                                 mask=mask)
-            elif self.precondition == "rff":
-                gen = torch.Generator(device=z.device).manual_seed(int(self.precond_seed))
-                factor = rff_basis(z, self.kernel, kp, self.precond_rank, gen)  # [M, 2L]
-                # Pad rows sit at huge coordinates where cos/sin are not
-                # small: zero them so the pads stay out of the sketch.
-                if mask is not None:
-                    factor = factor * mask[:, None]
-            else:
-                raise ValueError(f"unknown precondition mode: {self.precondition!r}")
-            return spectral_precond_state(factor, lam)
+        return kernel_precond_state(self.kernel, kp, z, lam, mask, self.precondition,
+                                    self.precond_rank, self.precond_seed)
 
     def precond_state(self, params: Dict):
         """The solver state for ``elbo(precond_override=...)`` (chunk-frozen

@@ -32,7 +32,7 @@ Preconditioners: :class:`EyePreconditioner`, :class:`BlockPreconditioner`,
 
 Not ported yet, each raising ``NotImplementedError``: other ``matvec_impl``
 values (``"xla_high"``, ``"xla_bf16"``, ``"bf16_ir"``, ``"bf16_ru"``: the
-mixed-precision routes), compensated dots and chunked solves.
+mixed-precision routes), compensated dots and ``solve_chunked``.
 """
 
 from __future__ import annotations
@@ -296,10 +296,18 @@ def cg_loop(
     max_steps_cycle: int,
     mat_for_precond: Optional[torch.Tensor] = None,
     relative_threshold: bool = False,
-) -> Tuple[torch.Tensor, CGStats]:
+    p0: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
     """Run PCG on ``v A = b`` (row convention); ``matvec(p)`` returns ``p @ A``
     and ``precond_apply(precond_state, r, mat_for_precond)`` returns
-    ``(z, r.z)``.  The stop rule reads the unpreconditioned residual ``r``."""
+    ``(z, r.z)``.  The stop rule reads the unpreconditioned residual ``r``.
+
+    ``p0`` carries a search direction in from an earlier run (residual
+    replacement): the residual is still re-anchored on the true ``b - v0 A``,
+    but the first direction is ``p0`` instead of ``z``.  ``return_state=True``
+    returns ``(v, stats, final CGState)``, so the next run can resume from
+    ``state.v`` and ``state.p``."""
     dtype, device = v0.dtype, v0.device
     zero = torch.zeros((), dtype=dtype, device=device)
     threshold = torch.tensor(error_threshold, dtype=dtype, device=device)
@@ -312,7 +320,7 @@ def cg_loop(
 
     r = b - matvec(v0)
     z, rz = precond_apply(precond_state, r, mat_for_precond)
-    state = CGState(0, v0, r, z, rz)
+    state = CGState(0, v0, r, z if p0 is None else p0, rz)
     while state.i < max_iterations and over_threshold(state.r):
         pa = matvec(state.p)
         denom = _standard_dot(state.p, pa)
@@ -331,7 +339,10 @@ def cg_loop(
     final_r_sq = torch.sum(torch.square(state.r), dim=-1, keepdim=True)
     converged = torch.logical_not(torch.any(0.5 * final_r_sq > threshold))
     steps = torch.tensor(state.i, dtype=torch.int32, device=device)
-    return state.v, CGStats(steps=steps, error=0.5 * state.rz, converged=converged)
+    stats = CGStats(steps=steps, error=0.5 * state.rz, converged=converged)
+    if return_state:
+        return state.v, stats, state
+    return state.v, stats
 
 
 # ---------------------------------------------------------------------------

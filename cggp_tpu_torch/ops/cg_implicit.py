@@ -8,7 +8,8 @@ of ``cggp_tpu/ops/cg_implicit.py``).
 * ``use_pallas=True`` — every solve matvec through kernel B3
   (:func:`cggp_tpu_torch.ops.pallas_gram.kuu_matvec`).
 * :func:`pivoted_cholesky_kernel` — the preconditioner factor from one
-  kernel row per pivot.
+  kernel row per pivot; :func:`kernel_precond_state` — the spectral
+  preconditioner state from it or from an RFF sketch.
 * :func:`make_implicit_cg` — the solve with JAX's custom backward pass
   (:class:`_ImplicitSolve`): a second matrix-free solve of the cotangent on
   the same route (B3 included) under the same preconditioner state, then
@@ -29,10 +30,12 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
-from cggp_tpu_torch.ops.cg import CGStats, cg_loop, precond_apply_or_identity
+from cggp_tpu_torch.ops.cg import (CGStats, cg_loop, precond_apply_or_identity,
+                                   spectral_precond_state)
 from cggp_tpu_torch.ops.kernels import Kernel
 from cggp_tpu_torch.ops.linalg import pivoted_cholesky_matfree
 from cggp_tpu_torch.ops.pallas_gram import kuu_matvec
+from cggp_tpu_torch.ops.rff import rff_basis
 
 
 def pad_inducing(z: torch.Tensor, lam: torch.Tensor, multiple: int,
@@ -72,6 +75,34 @@ def pivoted_cholesky_kernel(kernel: Kernel, kp, z: torch.Tensor, rank: int,
     diag = kernel.K_diag(kp, z)
     diag = diag.clone() if mask is None else diag * mask
     return pivoted_cholesky_matfree(row_fn, diag, rank)
+
+
+def kernel_precond_state(kernel: Kernel, kp, z: torch.Tensor, lam: torch.Tensor,
+                         mask: Optional[torch.Tensor], precondition: Optional[str],
+                         rank: int, seed: int = 0):
+    """The solver state of ``K(Z, Z) + diag(lam)``'s spectral preconditioner,
+    built from detached inputs (it changes step counts, never solutions or
+    gradients); ``()`` is the identity.  ``"pivchol"`` factors ``K(Z, Z)``
+    with :func:`pivoted_cholesky_kernel` (masked: no column is spent on a
+    pad); ``"rff"`` sketches it with ``rank`` random-Fourier bases drawn from
+    a generator seeded ``seed``, the pad rows zeroed (they sit at huge
+    coordinates where cos/sin are not small)."""
+    if precondition is None:
+        return ()
+    with torch.no_grad():
+        kp, z, lam = {k: v.detach() for k, v in kp.items()}, z.detach(), lam.detach()
+        if mask is not None:
+            mask = mask.detach().reshape(-1)
+        if precondition == "pivchol":
+            factor = pivoted_cholesky_kernel(kernel, kp, z, rank, mask=mask)
+        elif precondition == "rff":
+            gen = torch.Generator(device=z.device).manual_seed(int(seed))
+            factor = rff_basis(z, kernel, kp, rank, gen)  # [M, 2L]
+            if mask is not None:
+                factor = factor * mask[:, None]
+        else:
+            raise ValueError(f"unknown precondition mode: {precondition!r}")
+        return spectral_precond_state(factor, lam)
 
 
 def _kuu_panel(kernel: Kernel, kp, z: torch.Tensor, mask: Optional[torch.Tensor],

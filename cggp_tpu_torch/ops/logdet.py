@@ -21,8 +21,11 @@ Randomness comes from a ``torch.Generator`` where JAX takes a PRNG key;
 :func:`rademacher` draws on the generator's device.  Callers look it up by
 name when they run, so tests can substitute the JAX package's probes.
 
-Not ported yet: the LOVE serving cache (``lanczos_quad_cache_rows``,
-``love_variance``) and the host-chunked Lanczos.
+The host-chunked names (``lanczos_tridiag_rows_chunked``,
+``slq_value_rows_chunked``) are the same functions: in eager torch every
+Lanczos step is a dispatch of its own already.  Not ported yet: the LOVE
+serving cache (``lanczos_quad_cache_rows``, ``love_variance``; ROADMAP
+Queue A item 7).
 """
 
 from __future__ import annotations
@@ -390,6 +393,12 @@ def slq_value_rows(matvec_rows, probes_rows: torch.Tensor, lanczos_iters: int) -
     never leaves the real coordinates."""
     alphas, betas = lanczos_tridiag_rows(matvec_rows, probes_rows, lanczos_iters)
     return _slq_from_tridiag(alphas, betas, probes_rows)
+
+
+# The JAX package's host-chunked Lanczos (one bounded dispatch a step) runs
+# the same recurrence, so the same numbers: in eager torch they are these.
+lanczos_tridiag_rows_chunked = lanczos_tridiag_rows
+slq_value_rows_chunked = slq_value_rows
 
 
 def _slq_from_tridiag(alphas: torch.Tensor, betas: torch.Tensor,

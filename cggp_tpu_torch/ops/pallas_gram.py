@@ -16,8 +16,10 @@ Arithmetic.  The kernel builds every kernel value in IEEE fp32 (fp32 FMA
 distances, IEEE ``expf``/``sqrtf``).  Above 8 rows of ``B`` it contracts
 them in 3xTF32 on the tensor cores (TF32 halves ``hi + lo``, products
 ``lo hi + hi lo + hi hi``, each 32-deep stage added to the running sum in
-IEEE fp32; ``csrc/mma_3xtf32.cuh``) and adds ``p * lam`` in plain fp32; up
-to 8 rows it contracts them with IEEE fp32 FMA.  The plain versions compute
+IEEE fp32; ``csrc/mma_3xtf32.cuh``), adds the running sums to outer sums
+every 32 stages, and adds ``p * lam`` in plain fp32; up to 8 rows it
+contracts them with IEEE fp32 FMA in 16-deep chunks whose sums meet in a
+compensated (Kahan) sum.  The plain versions compute
 in IEEE fp32 (TF32 stays off).  :func:`gram_matvec_3xtf32_emulated` and
 :func:`kuu_matvec_3xtf32_emulated` repeat the 3xTF32 contraction in plain
 torch for the tests and the card's smoke run; the main path never calls
@@ -34,6 +36,7 @@ from cggp_tpu_torch.ops.kernels import kernel_value_from_r2, scaled_squared_dist
 from cggp_tpu_torch.ops.pallas_matvec import check_device, check_operand, matmul_3xtf32_emulated
 
 MAX_DIM = 32  # features per point the kernel takes (csrc/pallas_gram.cu kMaxDim)
+OUTER_STAGES = 32  # stages between the tiled launch's outer sums (kFlushStages)
 _KERNEL_IDS = {"se": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
 Variance = Union[torch.Tensor, float]
@@ -62,7 +65,7 @@ def gram_matvec_3xtf32_emulated(x_scaled: torch.Tensor, z_scaled: torch.Tensor,
     ``B = v^T`` against ``K(z, x)``)."""
     r2 = scaled_squared_distance(z_scaled, x_scaled)
     k = kernel_value_from_r2(kernel_name, r2, _variance_like(variance, v))
-    return matmul_3xtf32_emulated(v.T, k).T
+    return matmul_3xtf32_emulated(v.T, k, outer_every=OUTER_STAGES).T
 
 
 def kuu_matvec_3xtf32_emulated(z_scaled: torch.Tensor, lam: torch.Tensor, p_rows: torch.Tensor,
@@ -71,7 +74,8 @@ def kuu_matvec_3xtf32_emulated(z_scaled: torch.Tensor, lam: torch.Tensor, p_rows
     3xTF32, then ``+ p * lam`` in plain fp32."""
     r2 = scaled_squared_distance(z_scaled, z_scaled)
     k = kernel_value_from_r2(kernel_name, r2, _variance_like(variance, p_rows))
-    return matmul_3xtf32_emulated(p_rows, k) + p_rows * lam.reshape(1, -1)
+    return (matmul_3xtf32_emulated(p_rows, k, outer_every=OUTER_STAGES)
+            + p_rows * lam.reshape(1, -1))
 
 
 def _variance_like(variance: Variance, like: torch.Tensor) -> torch.Tensor:

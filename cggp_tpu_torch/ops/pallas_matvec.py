@@ -21,6 +21,8 @@ torch for the tests and the card's smoke run; the main path never calls it.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -79,8 +81,8 @@ def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def matmul_3xtf32_emulated(a: torch.Tensor, b: torch.Tensor,
-                           truncate: bool = False) -> torch.Tensor:
+def matmul_3xtf32_emulated(a: torch.Tensor, b: torch.Tensor, truncate: bool = False,
+                           outer_every: Optional[int] = None) -> torch.Tensor:
     """``a [R, K] @ b [K, N]`` as the 3xTF32 kernels compute it, in plain
     torch.  Each 32-deep stage is summed in the two parts of
     ``csrc/mma_3xtf32.cuh``: the eight small products ``lo hi + hi lo`` of
@@ -88,7 +90,9 @@ def matmul_3xtf32_emulated(a: torch.Tensor, b: torch.Tensor,
     two steps' ``hi hi``.  Inside a part each large product is added to the
     part's sum and the result rounded to float32, to nearest, or toward
     zero with ``truncate`` as the tensor cores do; the parts are added to
-    the running sum in order in IEEE float32.  Not modelled: the roundings
+    the running sum in order in IEEE float32 (with ``outer_every``, B3's
+    two levels: every ``outer_every`` stages the running sum is added to an
+    outer sum and restarts from zero).  Not modelled: the roundings
     after each small product (they go first, while the part's sum is
     small)."""
     rows, depth = a.shape
@@ -111,10 +115,13 @@ def matmul_3xtf32_emulated(a: torch.Tensor, b: torch.Tensor,
         first = to_float(to_float(small + large[:, 0]).double() + large[:, 1])
         second = to_float(to_float(large[:, 2]).double() + large[:, 3])
         acc = torch.zeros((first.shape[1], cols), dtype=torch.float32, device=a.device)
+        outer = torch.zeros_like(acc)
         for k in range(stages):
             acc = acc + first[k]
             acc = acc + second[k]
-        out[r0:r0 + block] = acc
+            if outer_every and (k + 1) % outer_every == 0:
+                outer, acc = outer + acc, torch.zeros_like(acc)
+        out[r0:r0 + block] = outer + acc
     return out
 
 

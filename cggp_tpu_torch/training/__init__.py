@@ -7,6 +7,7 @@ from cggp_tpu_torch.training.optimize import (adam, bind_predict_fn, create_moni
                                               make_adam_multi_step, make_adam_step,
                                               make_cg_stats_callback, make_metrics_callback,
                                               make_param_callback, predict_in_batches,
+                                              train_chunked_adam, train_full_batch_adam,
                                               train_using_adam_and_update)
 
 __all__ = [
@@ -21,5 +22,7 @@ __all__ = [
     "make_metrics_callback",
     "make_param_callback",
     "predict_in_batches",
+    "train_chunked_adam",
+    "train_full_batch_adam",
     "train_using_adam_and_update",
 ]

@@ -23,22 +23,29 @@
   the port seeds a fresh generator on the parameters' device for every call
   (seed 0 unless the caller gives one; the CG statistics fold the step into
   it), so a repeated call gives the same number.
-* :func:`predict_in_batches` — the posterior cache is built once; every
-  fixed-size batch then runs the model's ``posterior_predict`` and the
-  results are concatenated on the device.  The loop itself reads nothing
-  back to the host, so batches queue back to back on the card; whether a
-  batch's CG reads its stop rule on the host is the solver route's business
-  (``"pallas_resident"`` does not).  ``posterior_solver="auto"`` is
-  resolved through the model's ``resolve_serving_solver``; an auto-picked
-  Cholesky factor that is not finite falls back to ``"cg"`` with a warning,
-  an explicit ``"chol"`` request raises.
+* :func:`train_full_batch_adam` and :func:`train_chunked_adam` — full-batch
+  Adam for the exact GP's marginal likelihood (a fresh generator every
+  step), the second over an evaluator that returns the gradients itself
+  (``IterGPR.log_marginal_likelihood_chunked``).
+* :func:`predict_in_batches` — the posterior cache is built once (from the
+  parameters, or from the parameters and ``train_data`` for the
+  data-bound ``GPR`` and ``IterGPR``); every fixed-size batch then runs the
+  model's ``posterior_predict`` (``posterior_predict_chunked`` with
+  ``chunk_iterations > 0``) and the results are concatenated on the device.
+  The loop itself reads nothing back to the host, so batches queue back to
+  back on the card; whether a batch's CG reads its stop rule on the host is
+  the solver route's business (``"pallas_resident"`` does not).
+  ``posterior_solver="auto"`` is resolved through the model's
+  ``resolve_serving_solver``; an auto-picked Cholesky factor that is not
+  finite falls back to ``"cg"`` with a warning, an explicit ``"chol"``
+  request raises.
 
 Not ported yet, each raising ``NotImplementedError`` where it is a switch
 of a ported function: ``mesh`` training (ROADMAP Queue A item 12),
 ``recluster_fn`` (device re-clustering inside a chunk, item 10),
-``batch_size="auto"``, the one-dispatch scan route, mesh serving, chunked
-CG serving, serving without the posterior cache and data-bound models
-(item 7).  The L-BFGS, full-batch and chunked trainers are absent (item 9).
+``batch_size="auto"``, the one-dispatch scan route, mesh serving and
+serving without the posterior cache (item 7).  The L-BFGS trainers are
+absent (item 9).
 """
 
 from __future__ import annotations
@@ -352,6 +359,75 @@ def train_using_adam_and_update(
     return params
 
 
+def _step_generator(key: torch.Generator, device: torch.device) -> torch.Generator:
+    """A fresh generator on ``device`` seeded by one draw from ``key``: the
+    port's counterpart of a ``jax.random.split``."""
+    return _fixed_generator(device, seed_from(key))
+
+
+def train_full_batch_adam(params: Dict, loss_fn: Callable, iterations: int,
+                          learning_rate: float = 0.05, key: Optional[torch.Generator] = None,
+                          monitor: Optional[Monitor] = None,
+                          trainable_mask: Optional[Dict] = None) -> Dict:
+    """Full-batch Adam with a fresh generator every step, for objectives that
+    are stochastic estimators over the whole training set (``IterGPR``'s
+    marginal likelihood, whose log-det probes are drawn per step; it does not
+    decompose over rows).  ``loss_fn(params, generator)``; each step's
+    generator sits on the parameters' device, seeded by one draw from ``key``
+    (a ``torch.Generator``; without one, a generator seeded 0).  Steps
+    through :func:`make_adam_step`; the monitor gets ``train/loss`` and runs
+    its callbacks every step."""
+    optimizer = adam(learning_rate)
+    opt_state = optimizer.init(params)
+    if key is None:
+        key = torch.Generator().manual_seed(0)
+    device = _leaves(params)[0].device
+    step = make_adam_step(lambda p, _batch, k: loss_fn(p, k), optimizer, trainable_mask)
+    for i in range(int(iterations)):
+        params, opt_state, loss = step(params, opt_state, None, _step_generator(key, device))
+        if monitor is not None:
+            monitor.add_scalar("train/loss", float(loss), i)
+            monitor(i, params)
+    if monitor is not None:
+        monitor.flush()
+    return params
+
+
+def train_chunked_adam(params: Dict, value_grad_fn: Callable, iterations: int,
+                       learning_rate: float = 0.05, key: Optional[torch.Generator] = None,
+                       monitor: Optional[Monitor] = None,
+                       trainable_mask: Optional[Dict] = None) -> Dict:
+    """Adam over an evaluator that returns the marginal likelihood and its
+    gradients itself, ``value_grad_fn(params, generator) -> (mll, grads,
+    info)`` (``IterGPR.log_marginal_likelihood_chunked``, host-driven
+    chunks): the trainer ascends the MLL.  Generators as in
+    :func:`train_full_batch_adam`.  Steps whose ``info["converged"]`` is
+    false are counted and reported in one ``RuntimeWarning`` at the end."""
+    optimizer = adam(learning_rate)
+    opt_state = optimizer.init(params)
+    if key is None:
+        key = torch.Generator().manual_seed(0)
+    device = _leaves(params)[0].device
+    unconverged = 0
+    for i in range(int(iterations)):
+        value, grads, info = value_grad_fn(params, _step_generator(key, device))
+        if not info.get("converged", True):
+            unconverged += 1
+        grads = _mask_grads(_tree_map(lambda g: -g, grads), trainable_mask)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = _tree_map(lambda p, u: (p.detach() + u).to(p.dtype), params, updates)
+        if monitor is not None:
+            monitor.add_scalar("train/loss", -float(value), i)
+            monitor(i, params)
+    if monitor is not None:
+        monitor.flush()
+    if unconverged:
+        warnings.warn(f"train_chunked_adam: {unconverged}/{int(iterations)} steps hit the chunk "
+                      "budget unconverged — raise max_chunks/chunk_iterations or loosen the CG "
+                      "target", RuntimeWarning)
+    return params
+
+
 # ---------------------------------------------------------------------------
 # Monitor callbacks
 # ---------------------------------------------------------------------------
@@ -523,6 +599,23 @@ def _not_in_slice(what: str) -> NotImplementedError:
     return NotImplementedError(f"predict_in_batches: {what} arrives with a later slice of the port")
 
 
+def _posterior_takes_data(model) -> bool:
+    """Data-bound models (``GPR``, ``IterGPR``) bind the training set into
+    the cache, ``posterior(params, data)``; the variational ones are
+    params-only."""
+    return "data" in inspect.signature(model.posterior).parameters
+
+
+def _posterior_serves_via_cg(post) -> bool:
+    """True when a cache's mean-and-variance batch runs a CG solve: its
+    solver fields exist and are all unset (the CGGP / RowCGGP ``"cg"``
+    caches, an ``IterGPR`` cache without a LOVE cache).  Caches without
+    those fields (``GPR``) or with a factor are solve-free."""
+    has_solver_fields = hasattr(post, "chol") or hasattr(post, "lanczos_r")
+    return (has_solver_fields and getattr(post, "chol", None) is None
+            and getattr(post, "lanczos_r", None) is None)
+
+
 def predict_in_batches(model, params: Dict, x, batch_size=8192,
                        train_data=None, mean_only: bool = False,
                        use_posterior: bool = True, posterior_solver: str = "auto",
@@ -531,27 +624,33 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
     """Posterior ``(mean [N, P], var [N, 1])`` over ``x`` in batches of
     ``batch_size`` rows (``(mean, None)`` with ``mean_only``).
 
-    ``x`` (tensor or array) is moved to the parameters' device and dtype;
-    the last batch is padded with copies of row 0 and the padding dropped.
-    ``posterior`` serves from a prebuilt cache instead of building one.
-    A Cholesky cache whose factor is not finite raises
-    ``FloatingPointError``, as an explicit ``"chol"`` request does in the
-    JAX package."""
+    The posterior cache is built once: ``model.posterior(params)`` for the
+    params-only models, ``model.posterior(params, train_data)`` for the
+    data-bound ones (``GPR``, ``IterGPR``), as the JAX package decides by
+    the signature of ``posterior``.  ``x`` (tensor or array) is moved to the
+    parameters' device and dtype; the last batch is padded with copies of
+    row 0 and the padding dropped.  ``posterior`` serves from a prebuilt
+    cache instead of building one.  A Cholesky cache of a model with a
+    solver choice whose factor is not finite raises ``FloatingPointError``,
+    as an explicit ``"chol"`` request does in the JAX package.  With
+    ``chunk_iterations > 0`` a CG cache of a model with
+    ``posterior_predict_chunked`` serves its mean and variance batches
+    through it (host-driven chunks of that many CG steps)."""
     if batch_size == "auto":
         raise _not_in_slice('batch_size="auto"')
-    if train_data is not None or not use_posterior or not hasattr(model, "posterior"):
-        raise _not_in_slice("serving without a params-only posterior cache")
+    takes_data = hasattr(model, "posterior") and _posterior_takes_data(model)
+    if not use_posterior or not hasattr(model, "posterior") or \
+            (train_data is not None) != takes_data:
+        raise _not_in_slice("serving without the model's posterior cache")
     if mesh is not None:
         raise _not_in_slice("mesh serving")
     if scan is True:
         raise _not_in_slice("the one-dispatch scan route")
-    if chunk_iterations:
-        raise _not_in_slice("chunked CG serving")
 
-    z = params["inducing_points"]
+    ref = params["likelihood"]["variance"] if takes_data else params["inducing_points"]
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
-    x = x.to(device=z.device, dtype=z.dtype)
+    x = x.to(device=ref.device, dtype=ref.dtype)
     n = x.shape[0]
     batch_size = min(int(batch_size), n)
     num_batches = -(-n // batch_size)
@@ -559,6 +658,7 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
     if pad:
         x = torch.cat([x, x[:1].expand(pad, x.shape[-1])], dim=0)
 
+    takes_solver = "solver" in inspect.signature(model.posterior).parameters
     requested_solver = posterior_solver
     if posterior is None and posterior_solver == "auto":
         # Resolved eagerly through the model's own rule where it has one
@@ -567,8 +667,16 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
         resolver = getattr(model, "resolve_serving_solver", None)
         if resolver is not None:
             posterior_solver = resolver(params)
-    post = model.posterior(params, solver=posterior_solver) if posterior is None else posterior
-    if post.chol is not None and not bool(torch.all(torch.isfinite(torch.diagonal(post.chol)))):
+
+    def build(solver):
+        kw = {"solver": solver} if takes_solver else {}
+        return model.posterior(params, train_data, **kw) if takes_data \
+            else model.posterior(params, **kw)
+
+    post = build(posterior_solver) if posterior is None else posterior
+    chol = getattr(post, "chol", None)
+    if takes_solver and chol is not None and \
+            not bool(torch.all(torch.isfinite(torch.diagonal(chol)))):
         # One host check per cache build, never per batch: an explicit (or
         # prebuilt) chol cache raises, an auto-picked one falls back to CG.
         if requested_solver != "auto" or posterior is not None:
@@ -579,15 +687,22 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
         warnings.warn("posterior(solver='auto'): Cholesky factor is non-finite "
                       "(ill-conditioned Kmm+Lambda); falling back to CG serving",
                       RuntimeWarning)
-        post = model.posterior(params, solver="cg")
+        post = build("cg")
 
     batches = [x[i * batch_size:(i + 1) * batch_size] for i in range(num_batches)]
     if mean_only:
         means = [model.posterior_mean(post, xb) for xb in batches]
         return torch.cat(means)[:n], None
+    if chunk_iterations > 0 and hasattr(model, "posterior_predict_chunked") \
+            and _posterior_serves_via_cg(post):
+        def predict(xb):
+            return model.posterior_predict_chunked(post, xb, chunk_iterations=chunk_iterations)
+    else:
+        def predict(xb):
+            return model.posterior_predict(post, xb)
     means, variances = [], []
     for xb in batches:
-        mu, var = model.posterior_predict(post, xb)
+        mu, var = predict(xb)
         means.append(mu)
         variances.append(var)
     return torch.cat(means)[:n], torch.cat(variances)[:n]

@@ -37,6 +37,8 @@ import torch
 
 from cggp_tpu_torch.config import DeviceLike, resolve_device
 from cggp_tpu_torch.models.cggp import CGGPPosterior
+from cggp_tpu_torch.models.gpr import GPRPosterior
+from cggp_tpu_torch.models.itergpr import IterGPRPosterior
 from cggp_tpu_torch.models.rowcg import RowCGGPPosterior
 from cggp_tpu_torch.training.optimize import AdamState
 
@@ -45,6 +47,8 @@ from cggp_tpu_torch.training.optimize import AdamState
 _JAX_CLASS_NAMES = {
     CGGPPosterior: ("cggp_tpu.models.cggp", "CGGPPosterior"),
     RowCGGPPosterior: ("cggp_tpu.models.rowcg", "RowCGGPPosterior"),
+    IterGPRPosterior: ("cggp_tpu.models.itergpr", "IterGPRPosterior"),
+    GPRPosterior: ("cggp_tpu.models.gpr", "GPRPosterior"),
 }
 _PORT_CLASSES = {name: cls for cls, name in _JAX_CLASS_NAMES.items()}
 _CHECKPOINT_FORMAT = "cggp_tpu_torch checkpoint 1"
@@ -263,9 +267,11 @@ def _decode_pytree(desc, arrays, device: torch.device):
 
 
 def save_posterior(dirpath, post) -> None:
-    """Write a serving cache (:class:`CGGPPosterior` or
-    :class:`RowCGGPPosterior`) to ``{dirpath}/posterior.{npz,json}``,
-    readable by both packages; dtypes are kept exactly."""
+    """Write a serving cache (one of the classes of ``_JAX_CLASS_NAMES``:
+    :class:`CGGPPosterior`, :class:`RowCGGPPosterior`,
+    :class:`IterGPRPosterior`, :class:`GPRPosterior`) to
+    ``{dirpath}/posterior.{npz,json}``, readable by both packages; dtypes
+    are kept exactly."""
     if not (isinstance(post, tuple) and hasattr(post, "_fields")):
         raise TypeError(f"save_posterior expects a posterior NamedTuple, got {type(post)}")
     dirpath = Path(dirpath)

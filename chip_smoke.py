@@ -123,6 +123,31 @@ Phases, each printing one JSON line of its own:
               ``tests/jax_implicit_train_reference.py`` on the CPU), and JAX's
               loss and gradient norms within 2x the fp32 plain route's gap
               from fp64.
+15. ``setup_itergpr``  the exact GP at the JAX package's exact-GP training run
+              (``scripts/exact_gp_train_chip.py``): the first 131,072 rows of
+              ``synthetic(n=195_633, dim=3, seed=0)``, ``IterGPR`` (block 4096,
+              pivoted Cholesky rank 256, relative 1e-4, SLQ 20) with 8 fixed
+              Rademacher probes (``np.random.default_rng(7)``).
+    ``B3_itergpr``  ``kuu_matvec`` at M = N = 131,072 for R = 1, 9 and 512
+              against the first 4096 output columns in fp32 and fp64 (its
+              error from fp64 at most 2x the fp32 slice's), timed in turns
+              with the blocked route's matvec.
+    ``reference_itergpr`` / ``check_itergpr_small`` / ``itergpr_chunked``  at
+              N = 16,384: the dense fp64 ``GPR`` (quadratic term, posterior,
+              MLL) and the fp64 blocked route at 1e-12; the B3 route's first
+              step, quadratic term and posterior within 2x the fp32 blocked
+              route's gap, its CG steps within max(3, 5 %) of that route's and
+              JAX's (``JAX_ITERGPR_STEP0``), launches counted; JAX's float64
+              step within 1e-6 of the port's, JAX's fp32 gradient norms within
+              2x the fp32 blocked route's gap; the chunked MLL and posterior
+              against the fused ones.
+    ``train_itergpr_pallas``  ``train_full_batch_adam`` at N = 131,072 through
+              B3, 1 warm-up + 2 timed steps at adam(0.1): the MLL rising,
+              launches = the solves' steps + 1 per step, the first fused
+              solve's true residual by one fp64 blocked matvec.
+    ``serve_itergpr_pallas``  ``posterior`` and ``predict_in_batches(
+              train_data=...)`` at the trained parameters: test RMSE below its
+              untrained value, then means and variances of 512 points.
 
 Bounds (``bound_parts``): the least time of an fp32-accurate result, the
 smaller of the fp32 FMA time and three TF32 passes on the tensor cores, then
@@ -315,6 +340,54 @@ JAX_IMPLICIT_TRAIN_STEP0 = {
     "grad_norms": {"kernel/variance": 3438.0, "kernel/lengthscales": 5791.760855517569,
                    "likelihood/variance": 118906.96875},
     "cg_steps": [230, 81], "converged": [True, True]}
+# The exact GP (IterGPR) at the JAX package's own exact-GP training run,
+# scripts/exact_gp_train_chip.py at its default N: synthetic(n=195_633,
+# dim=3, seed=0), the first 131,072 training rows and the first 4096 test
+# rows, float32 (no pads: 131,072 = 32 x 4096); Matern32 at init_params,
+# block 4096, pivoted Cholesky at rank 256, relative threshold 1e-4, 8
+# probes, SLQ with 20 Lanczos steps, adam(0.1).  The probes are fixed (8
+# Rademacher rows drawn by np.random.default_rng(7)), so the objective is
+# deterministic; the fp64 references run on the first 16,384 rows (the
+# same probes cut to N).  Its 12 training steps are cut to 3 here (1
+# warm-up + 2 timed).
+ITERGPR_RAW_N = 195_633
+ITERGPR_N = 131_072
+ITERGPR_SMALL_N = 16_384
+ITERGPR_TEST = 4096
+ITERGPR_SMALL_TEST = 2048
+ITERGPR_BLOCK = 4096
+ITERGPR_PROBES = 8
+ITERGPR_PROBE_SEED = 7
+ITERGPR_THRESHOLD = 1e-4
+ITERGPR_RANK = 256
+ITERGPR_SLQ = 20
+ITERGPR_LR = 0.1
+ITERGPR_WARMUP = 1
+ITERGPR_STEPS = 2
+ITERGPR_VAR_BATCH = 512
+ITERGPR_REF_THRESHOLD = 1e-12
+ITERGPR_REF_MAX_CG = 5000
+ITERGPR_CHUNK = 8
+ITERGPR_CHUNK_THRESHOLD = 1e-8  # the chunked-against-fused comparison's (relative)
+ITERGPR_NOISE_FLOOR_RMSE = 0.1
+# The JAX package's fp32 first step at N = 16,384 on the blocked XLA route
+# with these probes, on the CPU (tests/jax_itergpr_reference.py, jax 0.9.0,
+# 58 s on 8 cores): the loss, the gradient norms, the forward and backward
+# CG steps, and the probes' sha256 (of the full [8, 131072] rows); under
+# "float64" the same step from the fp32 data and parameters widened, at
+# relative 1e-12 (the script's --float64, 178 s on 8 cores).
+JAX_ITERGPR_STEP0 = {
+    "probes_sha256": "e72184bb18c630871db22ab999a9c61c1bfea457d18c3f8afc9efb2d4678a890",
+    "loss": -288.9619140625,
+    "grad_norms": {"kernel/variance": 490.747802734375,
+                   "kernel/lengthscales": 799.7800061298026,
+                   "likelihood/variance": 6223.6767578125},
+    "cg_steps": [20, 16], "converged": [True, True],
+    "float64": {"loss": -288.77880031464883,
+                "grad_norms": {"kernel/variance": 490.45387630263883,
+                               "kernel/lengthscales": 799.646020440767,
+                               "likelihood/variance": 6223.89886133914},
+                "cg_steps": [52, 48], "converged": [True, True]}}
 _T0 = time.monotonic()
 
 
@@ -1475,6 +1548,538 @@ def implicit_training_phases(ctx) -> None:
                            "route's gap from fp64"})
 
 
+def itergpr_phases(ctx) -> None:
+    """The exact GP phases (``setup_itergpr``, ``B3_itergpr``,
+    ``reference_itergpr``, ``check_itergpr_small``, ``itergpr_chunked``,
+    ``train_itergpr_pallas``, ``serve_itergpr_pallas``): ``IterGPR`` trained
+    and served through its entry points at N = 131,072 with every CG matvec
+    of its solves on B3, held against float64 and the JAX package at N =
+    16,384.  ``ctx`` carries the card, its ``nvidia-smi`` line and max SM
+    clock, and the B3 record of the ``kernels`` line (which gains the
+    ``itergpr_*`` counts and times).  Every solve, forward or backward, is
+    read through a wrapper of ``ops.cg_implicit._implicit_cg_impl``."""
+    import cggp_tpu_torch.ops.cg_implicit as cg_implicit_module
+    import cggp_tpu_torch.ops.logdet as logdet_module
+    from cggp_tpu_torch.data import synthetic
+    from cggp_tpu_torch.models import GPR, IterGPR
+    from cggp_tpu_torch.ops.cg_implicit import blocked_kuu_matvec
+    from cggp_tpu_torch.ops.kernels import (Matern32, kernel_value_from_r2,
+                                            scaled_squared_distance)
+    from cggp_tpu_torch.ops.pallas_gram import gram_matvec, kuu_matvec
+    from cggp_tpu_torch.training.optimize import predict_in_batches, train_full_batch_adam
+
+    device, card_line, b3 = ctx["device"], ctx["card_line"], ctx["gram_record"]
+    sm_clock_hz = ctx["sm_clock_hz"]
+    n, small = ITERGPR_N, ITERGPR_SMALL_N
+
+    def read_counts():
+        return {"kuu_matvec": kuu_matvec.launches, "gram_matvec": gram_matvec.launches}
+
+    def zero_counts():
+        kuu_matvec.launches = gram_matvec.launches = 0
+
+    solves, capture = [], {"armed": False}
+    impl = cg_implicit_module._implicit_cg_impl
+    vjp_impl = cg_implicit_module.matvec_vjp
+
+    def recording(matvec, precond_state, rhs, *limits):
+        solution, stats = impl(matvec, precond_state, rhs, *limits)
+        solves.append({"rows": int(rhs.shape[0]), "stats": stats})
+        if capture["armed"]:  # keep the next solve's operands (the fused forward solve)
+            capture.update(armed=False, rhs=rhs.detach().clone(), solution=solution.detach())
+        return solution, stats
+
+    def steps_of(records):
+        return [(int(r["stats"].steps), bool(r["stats"].converged)) for r in records]
+
+    def want_launches(use_pallas, records):
+        return {"kuu_matvec": sum(k + 1 for k, _ in steps_of(records)) if use_pallas else 0,
+                "gram_matvec": 0}
+
+    def make_itergpr(use_pallas, threshold=ITERGPR_THRESHOLD, max_cg=1000):
+        return IterGPR(kernel=Matern32(), error_threshold=threshold, relative_threshold=True,
+                       max_cg_iterations=max_cg, num_probes=ITERGPR_PROBES,
+                       slq_lanczos_iters=ITERGPR_SLQ, precondition="pivchol",
+                       precond_rank=ITERGPR_RANK, block=ITERGPR_BLOCK, use_pallas=use_pallas)
+
+    def mll_step(model, params, data, probes):
+        """The training loss and the gradients of the trainable parameters."""
+        live = {s: {k: v.detach().clone().requires_grad_() for k, v in d.items()}
+                for s, d in params.items()}
+        loss = model.training_loss(live, data, probes=probes)
+        grads = torch.autograd.grad(loss, [live["kernel"]["variance"],
+                                           live["kernel"]["lengthscales"],
+                                           live["likelihood"]["variance"]])
+        return loss.detach(), dict(zip(TRAINABLE, (g.detach() for g in grads)))
+
+    def finite_params(p):
+        return all(bool(torch.isfinite(v).all()) for d in p.values() for v in d.values())
+
+    def over(gaps, ref):
+        return {k: (gaps[k] / ref[k] if ref[k] > 0 else 0.0 if gaps[k] == 0 else math.inf)
+                for k in gaps}
+
+    cg_implicit_module._implicit_cg_impl = recording
+    try:
+        # -- setup_itergpr: the data, the fixed probes and the init parameters
+        with Phase("setup_itergpr", 20) as ph:
+            (x_np, y_np), (xt_np, yt_np) = synthetic(n=ITERGPR_RAW_N, dim=3, seed=0)
+            require(x_np.shape[0] >= n and xt_np.shape[0] >= ITERGPR_TEST and n % ITERGPR_BLOCK == 0,
+                    f"split {x_np.shape[0]} / {xt_np.shape[0]} rows")
+            x = torch.as_tensor(x_np[:n], dtype=torch.float32, device=device)
+            y = torch.as_tensor(y_np[:n], dtype=torch.float32, device=device)
+            xt = torch.as_tensor(xt_np[:ITERGPR_TEST], dtype=torch.float32, device=device)
+            yt = torch.as_tensor(yt_np[:ITERGPR_TEST], dtype=torch.float32, device=device)
+            rng = np.random.default_rng(ITERGPR_PROBE_SEED)
+            probes_np = (2 * rng.integers(0, 2, size=(ITERGPR_PROBES, n)) - 1).astype(np.float32)
+            probes_sha256 = hashlib.sha256(probes_np.tobytes()).hexdigest()
+            probes = torch.as_tensor(probes_np, device=device)
+            params = make_itergpr(True).init_params(3, dtype=torch.float32, device=device)
+            emit({"phase": "setup_itergpr", "n": n, "n_small": small, "test_points": ITERGPR_TEST,
+                  "block": ITERGPR_BLOCK, "probes": ITERGPR_PROBES, "probes_sha256": probes_sha256,
+                  "precond_rank": ITERGPR_RANK, "slq_lanczos_iters": ITERGPR_SLQ,
+                  "relative_threshold": ITERGPR_THRESHOLD, "lr": ITERGPR_LR,
+                  "steps": ITERGPR_WARMUP + ITERGPR_STEPS, "wall_s": ph.elapsed()})
+
+        kernel, kp = Matern32(), params["kernel"]
+        noise = make_itergpr(True).likelihood.variance(params["likelihood"])
+
+        # -- B3_itergpr: kuu_matvec at M = N = 131,072 for the path's row counts
+        with Phase("B3_itergpr", 60) as ph:
+            z = (x / kernel.lengthscales(kp)).contiguous()
+            lam = (noise * torch.ones(n, device=device)).contiguous()
+            var = kernel.variance(kp).reshape(1).contiguous()
+            ones = torch.ones(n, device=device)
+            blocked = make_itergpr(False)
+            cols = ITERGPR_BLOCK  # the plain slice: the first 4096 output columns
+            k32 = kernel_value_from_r2("matern32", scaled_squared_distance(z, z[:cols]),
+                                       var.reshape(()))
+            z64 = z.double()
+            k64 = kernel_value_from_r2("matern32", scaled_squared_distance(z64, z64[:cols]),
+                                       var.double().reshape(()))
+            gen = torch.Generator(device=device).manual_seed(8)
+            cases = {}
+            for rows in (1, 9, ITERGPR_VAR_BATCH):
+                p = torch.randn(rows, n, generator=gen, device=device)
+                got = kuu_matvec(z, lam, p, var, "matern32")
+                plain = p @ k32 + p[:, :cols] * lam[:cols]
+                exact = p.double() @ k64 + p[:, :cols].double() * lam[:cols].double()
+                ph.wait()
+                require(bool(torch.isfinite(got).all()), f"B3_itergpr R={rows}: non-finite output")
+                scale = float((p.abs() @ k32).max())
+                err = float((got[:, :cols] - plain).abs().max())
+                err64 = float((got[:, :cols].double() - exact).abs().max())
+                plain64 = float((plain.double() - exact).abs().max())
+                del plain, exact
+                # Both are fp32-accurate sums of N = 131,072 kernel values
+                # times p in other orders: the gap is within the random walk
+                # sqrt(N) eps = 4.3e-5 of sum |p| K.  From fp64, B3 (its
+                # depth summed at two levels) is held to twice the fp32 slice
+                # that torch.matmul computes, at every row count.
+                require(err <= 5e-5 * scale, f"B3_itergpr R={rows}: {err} vs the plain slice")
+                require(err64 <= 2.0 * plain64,
+                        f"B3_itergpr R={rows}: {err64} from fp64, the fp32 slice {plain64}")
+                times = timed_in_turns(
+                    ph, {"blocked": lambda: blocked._matvec(kp, x, lam, ones, p),
+                         "kernel": lambda: kuu_matvec(z, lam, p, var, "matern32")},
+                    ["blocked", "kernel", "kernel", "blocked"], reps=1)
+                kernel_ms = float(np.mean(times["kernel"]))
+                bound, bound_by, bound_what, parts = gram_bound(
+                    n, n, 3, rows, "matern32", sm_clock_hz, 4.0 * (n * 3 + n + 1 + 2 * rows * n))
+                row_tiles = -(-rows // 128)
+                launch = ({"launch": "small", "blocks": -(-n // 32), "threads": 256,
+                           "rows": rows, "rows_of_8_used": rows} if rows <= 8 else
+                          {"launch": "tiled 3xTF32", "row_tiles": row_tiles,
+                           "column_tiles": -(-n // 128), "threads": 512,
+                           "rows_used_of_each_128_row_tile": min(rows, 128),
+                           "rows_used_of_last_tile": rows - 128 * (row_tiles - 1)})
+                values_built = (1 if rows <= 8 else row_tiles) * float(n) * n
+                cases[rows] = {
+                    "rows": rows, "n": n, "b_loader": b3_loader(p, rows, n, 1), **launch,
+                    "max_abs_err_vs_plain_slice": err, "max_rel_err": err / scale,
+                    "max_abs_err_vs_fp64_slice": err64, "plain_slice_max_abs_err_vs_fp64": plain64,
+                    "err_vs_fp64_over_plain_slice": err64 / plain64 if plain64 else None,
+                    "scale_max_abs_p_K": scale,
+                    "tolerance": "vs the fp32 slice <= 5e-5 * max(|p| K); "
+                                 "vs fp64 <= 2x the fp32 slice's",
+                    "kernel_ms": kernel_ms, "blocked_ms": float(np.mean(times["blocked"])),
+                    "turns_ms": times, "kernel_values_built": values_built,
+                    "kernel_values_per_s": values_built / (kernel_ms / 1e3),
+                    "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
+                    "bound_parts_ms": parts}
+                del p, got
+            del k32, k64, z64
+            emit({"phase": "B3_itergpr", "cases": list(cases.values()),
+                  "plain_note": "blocked_ms: the blocked route's matvec (32 [4096, N] kernel "
+                                "panels, torch.matmul) at the same R; the plain version whole "
+                                "would build a 68.7 GB [N, N] K",
+                  "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+            for rows, case in cases.items():
+                b3.update({f"itergpr_ms_r{rows}": case["kernel_ms"],
+                           f"itergpr_blocked_ms_r{rows}": case["blocked_ms"],
+                           f"itergpr_bound_ms_r{rows}": case["bound_ms"]})
+
+        # -- reference_itergpr: fp64 at N = 16,384 (dense GPR; blocked at 1e-12)
+        xs, ys, probes_s = x[:small], y[:small], probes[:, :small]
+        xq = xt[:ITERGPR_SMALL_TEST]
+        with Phase("reference_itergpr", 50) as ph:
+            xs64, ys64, xq64 = xs.double(), ys.double(), xq.double()
+            params64 = {s: {k: v.double() for k, v in d.items()} for s, d in params.items()}
+            dense = GPR(kernel=kernel)
+            post64 = dense.posterior(params64, (xs64, ys64))
+            quad64 = float(torch.sum(ys64 * post64.nu))
+            mean64, var64 = dense.posterior_predict(post64, xq64)
+            mll64 = float(dense.log_marginal_likelihood(params64, (xs64, ys64)))
+            del post64
+            solves.clear()
+            loss_ref, grads_ref = mll_step(make_itergpr(False, ITERGPR_REF_THRESHOLD,
+                                                        ITERGPR_REF_MAX_CG),
+                                           params64, (xs64, ys64), probes_s.double())
+            ph.wait()
+            steps64 = steps_of(solves)
+            require(len(steps64) == 2 and all(c and k < ITERGPR_REF_MAX_CG for k, c in steps64),
+                    f"reference_itergpr: fp64 solves {steps64}")
+            solves.clear()
+            loss32, grads32 = mll_step(make_itergpr(False), params, (xs, ys), probes_s)
+            ph.wait()
+            steps32 = steps_of(solves)
+            xla_gap = relative_gaps(loss32, grads32, loss_ref, grads_ref)
+            blocked = make_itergpr(False)
+            post32 = blocked.posterior(params, (xs, ys))
+            quad_gap_xla = abs(float(torch.sum(post32.alpha * ys.T)) - quad64) / abs(quad64)
+            m32, v32 = predict_in_batches(blocked, params, xq, batch_size=1024,
+                                          train_data=(xs, ys), posterior=post32)
+            ph.wait()
+            serve_gap_xla = {"mean": float((m32.double() - mean64).abs().max()),
+                             "var": float((v32.double() - var64).abs().max())}
+            emit({"phase": "reference_itergpr", "n": small, "query_points": ITERGPR_SMALL_TEST,
+                  "dense_fp64": {"mll": mll64, "quad": quad64,
+                                 "var_min": float(var64.min()), "var_max": float(var64.max())},
+                  "blocked_fp64": {"threshold": ITERGPR_REF_THRESHOLD, "loss": float(loss_ref),
+                                   "cg_steps": [k for k, _ in steps64],
+                                   **{f"|d {k}|": float(torch.linalg.vector_norm(grads_ref[k]))
+                                      for k in TRAINABLE}},
+                  "blocked_fp32": {"loss": float(loss32), "cg_steps": [k for k, _ in steps32]},
+                  "xla_fp32_gap": xla_gap, "xla_fp32_quad_gap": quad_gap_xla,
+                  "xla_fp32_serve_gap": serve_gap_xla, "wall_s": ph.elapsed()})
+
+        # -- check_itergpr_small: the B3 route at N = 16,384 against fp64 and JAX
+        with Phase("check_itergpr_small", 30) as ph:
+            model = make_itergpr(True)
+            solves.clear()
+            zero_counts()
+            loss_b3, grads_b3 = mll_step(model, params, (xs, ys), probes_s)
+            ph.wait()
+            step0, step_launches = steps_of(solves), read_counts()
+            require(len(step0) == 2 and all(c for _, c in step0), f"check_itergpr_small: {step0}")
+            require(step_launches == want_launches(True, solves),
+                    f"check_itergpr_small: launches {step_launches}, solves {step0}")
+            gaps = relative_gaps(loss_b3, grads_b3, loss_ref, grads_ref)
+            require(all(v <= 2.0 for v in over(gaps, xla_gap).values()),
+                    f"check_itergpr_small: {gaps} from fp64, the fp32 blocked route {xla_gap}")
+            require(probes_sha256 == JAX_ITERGPR_STEP0["probes_sha256"],
+                    "the probes are not those JAX's values were taken with")
+            for (got, _), (plain, _), jax_steps, label in zip(
+                    step0, steps32, JAX_ITERGPR_STEP0["cg_steps"], ("forward", "backward")):
+                for ref, who in ((plain, "the fp32 blocked route"), (jax_steps, "JAX")):
+                    require(abs(got - ref) <= max(3, 0.05 * ref),
+                            f"check_itergpr_small: {label} steps {got} vs {who} {ref}")
+            solves.clear()
+            zero_counts()
+            post = model.posterior(params, (xs, ys))
+            mb, vb = predict_in_batches(model, params, xq, batch_size=1024, train_data=(xs, ys),
+                                        posterior=post)
+            ph.wait()
+            serve_launches = read_counts()
+            require(len(solves) == 1 + ITERGPR_SMALL_TEST // 1024
+                    and serve_launches == want_launches(True, solves),
+                    f"check_itergpr_small: serving launches {serve_launches}, "
+                    f"solves {steps_of(solves)}")
+            quad_gap = abs(float(torch.sum(post.alpha * ys.T)) - quad64) / abs(quad64)
+            serve_gap = {"mean": float((mb.double() - mean64).abs().max()),
+                         "var": float((vb.double() - var64).abs().max())}
+            require(quad_gap <= 2.0 * quad_gap_xla,
+                    f"check_itergpr_small: quad {quad_gap} from fp64, blocked {quad_gap_xla}")
+            require(all(v <= 2.0 for v in over(serve_gap, serve_gap_xla).values()),
+                    f"check_itergpr_small: posterior {serve_gap} from fp64, blocked {serve_gap_xla}")
+            # JAX against this run's references.  In float64 both packages
+            # compute the same function of the same widened fp32 inputs.
+            # Their fp32 initial noise parameters differ by one ulp (torch's
+            # and XLA's log / expm1), and a solve stopped at relative 1e-12
+            # is within kappa 1e-12 <= 1.6e-7 of its solution (kappa <= (N
+            # var + noise) / noise): 1e-6 holds JAX's float64 loss and
+            # gradient norms to the port's.
+            ref64 = JAX_ITERGPR_STEP0["float64"]
+            norms_ref = {k: float(torch.linalg.vector_norm(grads_ref[k])) for k in TRAINABLE}
+            jax64_gap = {"loss": abs(ref64["loss"] - float(loss_ref)) / abs(float(loss_ref)),
+                         **{k: abs(ref64["grad_norms"][k] - norms_ref[k]) / norms_ref[k]
+                            for k in TRAINABLE}}
+            require(all(v <= 1e-6 for v in jax64_gap.values()),
+                    f"check_itergpr_small: JAX's float64 step {jax64_gap} from the port's")
+            for (got, _), want, label in zip(steps64, ref64["cg_steps"], ("forward", "backward")):
+                require(abs(got - want) <= max(3, 0.05 * want),
+                        f"check_itergpr_small: float64 {label} steps {got} vs JAX {want}")
+            # JAX's fp32 gradient norms no further from fp64 than twice the
+            # fp32 blocked route's gradients (a norm's gap is at most its
+            # vector's).  JAX's fp32 loss is not held to the card's: the
+            # loss, -0.5 (quad + logdet + N log 2 pi), cancels terms of
+            # ~3e4 to ~3e2, so its fp32 gap is the platform's rounding of
+            # those terms -- 6.2e-5 through cuBLAS on the card, 2.3e-4 for
+            # the port's blocked route on the CPU, 6.3e-4 for JAX's on the
+            # CPU (PERF.md, PR 11); the float64 gate above holds the value.
+            jax_loss_gap = abs(JAX_ITERGPR_STEP0["loss"] - float(loss_ref)) / abs(float(loss_ref))
+            jax_grad_gap = {k: abs(JAX_ITERGPR_STEP0["grad_norms"][k] - norms_ref[k]) / norms_ref[k]
+                            for k in TRAINABLE}
+            require(all(jax_grad_gap[k] <= 2.0 * xla_gap[k] for k in TRAINABLE),
+                    f"check_itergpr_small: JAX's fp32 gradient norms {jax_grad_gap} from fp64, "
+                    f"the fp32 blocked route's gradients {xla_gap}")
+            emit({"phase": "check_itergpr_small", "n": small, "launches": step_launches,
+                  "cg_steps": [k for k, _ in step0], "cg_steps_blocked_fp32":
+                      [k for k, _ in steps32], "cg_steps_jax": JAX_ITERGPR_STEP0["cg_steps"],
+                  "loss": float(loss_b3), "gap_vs_fp64": gaps, "xla_fp32_gap_vs_fp64": xla_gap,
+                  "gap_over_xla_fp32_gap": over(gaps, xla_gap),
+                  "quad_gap_vs_dense_fp64": quad_gap, "xla_fp32_quad_gap": quad_gap_xla,
+                  "serve_launches": serve_launches,
+                  "serve_cg_steps": [k for k, _ in steps_of(solves)],
+                  "serve_gap_vs_dense_fp64": serve_gap, "xla_fp32_serve_gap": serve_gap_xla,
+                  "jax_cpu": JAX_ITERGPR_STEP0, "jax_fp32_loss_gap_vs_fp64": jax_loss_gap,
+                  "jax_fp32_grad_norm_gap_vs_fp64": jax_grad_gap,
+                  "jax_fp64_gap_vs_port_fp64": jax64_gap,
+                  "tolerance": "loss, each gradient, quad term, posterior mean and variance: "
+                               "the gap from fp64 at most 2x the fp32 blocked route's; CG "
+                               "steps within max(3, 5 %) of the fp32 blocked route's and JAX's "
+                               "(fp32 and fp64); JAX's fp32 gradient norms within 2x the fp32 "
+                               "blocked route's gap from fp64; JAX's fp64 loss and gradient "
+                               "norms within 1e-6 of the port's",
+                  "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+
+        # -- itergpr_chunked: the chunked MLL and posterior (blocked matvec)
+        # against the fused path, both at a tight threshold where fp32
+        # rounding, not the stop rule, sets their gap: held to the fused
+        # fp32 blocked route's own gap from fp64 at the path's threshold.
+        with Phase("itergpr_chunked", 30) as ph:
+            tight = make_itergpr(True, ITERGPR_CHUNK_THRESHOLD)
+            loss_f, grads_f = mll_step(tight, params, (xs, ys), probes_s)
+            loss_tb, grads_tb = mll_step(make_itergpr(False, ITERGPR_CHUNK_THRESHOLD), params,
+                                         (xs, ys), probes_s)
+            post_f = tight.posterior(params, (xs, ys))
+            mf, vf = predict_in_batches(tight, params, xq, batch_size=1024, train_data=(xs, ys),
+                                        posterior=post_f)
+            ph.wait()
+            zero_counts()
+            value, grads_c, info = tight.log_marginal_likelihood_chunked(
+                params, (xs, ys), probes=probes_s, chunk_iterations=ITERGPR_CHUNK,
+                max_chunks=128, logdet_value="slq")
+            post_c = tight.posterior_chunked(params, (xs, ys), chunk_iterations=ITERGPR_CHUNK,
+                                             max_chunks=128)
+            mc, vc = predict_in_batches(tight, params, xq, batch_size=1024, train_data=(xs, ys),
+                                        posterior=post_c, chunk_iterations=ITERGPR_CHUNK)
+            ph.wait()
+            chunk_launches = read_counts()
+            require(chunk_launches == {"kuu_matvec": 0, "gram_matvec": 0},
+                    f"itergpr_chunked: launches {chunk_launches} (the blocked matvec only)")
+            require(info["converged"], f"itergpr_chunked: {info}")
+            loss_c = -value
+            grads_loss_c = {f"{s}/{k}": -g for s, d in grads_c.items() for k, g in d.items()}
+            vs_fused = relative_gaps(loss_c, grads_loss_c, loss_f.double(),
+                                     {k: v.double() for k, v in grads_f.items()})
+            require(all(v <= 1.0 for v in over(vs_fused, xla_gap).values()),
+                    f"itergpr_chunked: {vs_fused} from the fused path, the fp32 blocked "
+                    f"route's gap from fp64 {xla_gap}")
+            serve_vs_fused = {"mean": float((mc - mf).abs().max()),
+                              "var": float((vc - vf).abs().max())}
+            require(all(v <= 1.0 for v in over(serve_vs_fused, serve_gap_xla).values()),
+                    f"itergpr_chunked: posterior {serve_vs_fused} from the fused path, "
+                    f"the fp32 blocked route's from fp64 {serve_gap_xla}")
+            emit({"phase": "itergpr_chunked", "chunk_iterations": ITERGPR_CHUNK,
+                  "relative_threshold": ITERGPR_CHUNK_THRESHOLD, "info": info,
+                  "launches": chunk_launches, "vs_fused_b3": vs_fused,
+                  "gap_vs_fp64": relative_gaps(loss_c, grads_loss_c, loss_ref, grads_ref),
+                  "fused_b3_gap_vs_fp64": relative_gaps(loss_f, grads_f, loss_ref, grads_ref),
+                  "fused_blocked_fp32_gap_vs_fp64": relative_gaps(loss_tb, grads_tb, loss_ref,
+                                                                  grads_ref),
+                  "serve_vs_fused_b3": serve_vs_fused,
+                  "serve_gap_vs_dense_fp64": {"mean": float((mc.double() - mean64).abs().max()),
+                                              "var": float((vc.double() - var64).abs().max())},
+                  "xla_fp32_gap_at_path_threshold": xla_gap,
+                  "xla_fp32_serve_gap_at_path_threshold": serve_gap_xla,
+                  "tolerance": "chunked vs fused (loss, each gradient, posterior mean and "
+                               "variance) at most the fp32 blocked route's gap from fp64 at the "
+                               "path's threshold",
+                  "wall_s": ph.elapsed()})
+            del post_c, mc, vc, post_f, mf, vf, post, mb, vb, post32, m32, v32
+
+        # -- train_itergpr_pallas: train_full_batch_adam at N = 131,072 on B3
+        with Phase("train_itergpr_pallas", 160) as ph:
+            model = make_itergpr(True)
+            data = (x, y)
+            blocked_s, marks, losses = [0.0], [], []
+
+            def timed(fn):
+                def wrapped(*args, **kwargs):
+                    ph.wait()
+                    t0 = time.monotonic()
+                    out = fn(*args, **kwargs)
+                    ph.wait()
+                    blocked_s[0] += time.monotonic() - t0
+                    return out
+                return wrapped
+
+            class StepLog:
+                """The trainer's monitor: each step's loss, end time, counts."""
+
+                def add_scalar(self, name, value, step):
+                    losses.append(float(value))
+
+                def __call__(self, step, p):
+                    ph.wait()
+                    marks.append({"t": time.monotonic(), "launches": read_counts(),
+                                  "solves": len(solves), "blocked_s": blocked_s[0],
+                                  "peak_mb": torch.cuda.max_memory_allocated() / 1e6})
+
+                def flush(self):
+                    pass
+
+            # The blocked route's share of a step: the SLQ value and the two
+            # matvec VJPs (the solve's and the log-det's), synchronised.
+            object.__setattr__(model, "_slq_value", timed(model._slq_value))
+            cg_implicit_module.matvec_vjp = logdet_module.matvec_vjp = timed(vjp_impl)
+            try:
+                solves.clear()
+                ph.wait()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                capture["armed"] = True
+                t_start = time.monotonic()
+                trained = train_full_batch_adam(
+                    params, lambda p, g: model.training_loss(p, data, probes=probes),
+                    ITERGPR_WARMUP + ITERGPR_STEPS, learning_rate=ITERGPR_LR,
+                    key=torch.Generator().manual_seed(0), monitor=StepLog())
+            finally:
+                cg_implicit_module.matvec_vjp = logdet_module.matvec_vjp = vjp_impl
+            total = ITERGPR_WARMUP + ITERGPR_STEPS
+            require(len(marks) == total and len(losses) == total,
+                    f"train_itergpr_pallas: {len(marks)} steps logged")
+            starts = [{"t": t_start, "launches": {"kuu_matvec": 0, "gram_matvec": 0},
+                       "solves": 0, "blocked_s": 0.0}] + marks[:-1]
+            per_step = []
+            for i, (a, b) in enumerate(zip(starts, marks)):
+                records = solves[a["solves"]:b["solves"]]
+                launches = {k: b["launches"][k] - a["launches"][k] for k in b["launches"]}
+                require(len(records) == 2 and launches == want_launches(True, records),
+                        f"train_itergpr_pallas: step {i} launches {launches}, "
+                        f"solves {steps_of(records)}")
+                per_step.append({"step": i, "mll": -losses[i], "s": b["t"] - a["t"],
+                                 "cg_steps": [k for k, _ in steps_of(records)],
+                                 "converged": [c for _, c in steps_of(records)],
+                                 "launches": launches["kuu_matvec"],
+                                 "blocked_route_s": b["blocked_s"] - a["blocked_s"],
+                                 "peak_mb": b["peak_mb"]})
+            mll = [-v for v in losses]
+            require(all(math.isfinite(v) for v in mll) and finite_params(trained),
+                    f"train_itergpr_pallas: non-finite MLL or parameters {mll}")
+            require(all(b > a for a, b in zip(mll, mll[1:])),
+                    f"train_itergpr_pallas: the MLL does not strictly improve {mll}")
+            require(all(all(s["converged"]) for s in per_step),
+                    "train_itergpr_pallas: a solve did not converge")
+            timed_steps = per_step[ITERGPR_WARMUP:]
+            window_s = sum(s["s"] for s in timed_steps)
+            window_launches = sum(s["launches"] for s in timed_steps)
+            # The first fused solve's true residual, by one fp64 blocked matvec.
+            b_rows, v_rows = capture["rhs"].double(), capture["solution"].double()
+            with torch.no_grad():
+                kp64 = {k: v.double() for k, v in kp.items()}
+                residual = b_rows - blocked_kuu_matvec(kernel, kp64, x.double(),
+                                                       noise.double() * torch.ones(
+                                                           n, dtype=torch.float64, device=device),
+                                                       v_rows, ITERGPR_BLOCK)
+            true_rel = (torch.linalg.vector_norm(residual, dim=-1)
+                        / torch.linalg.vector_norm(b_rows, dim=-1)).tolist()
+            del b_rows, v_rows, residual
+            rule = math.sqrt(ITERGPR_THRESHOLD)
+            require(len(true_rel) == 1 + ITERGPR_PROBES and max(true_rel) <= 2.0 * rule,
+                    f"train_itergpr_pallas: true relative residuals {true_rel} > 2 x {rule}")
+            train_record = {
+                "phase": "train_itergpr_pallas", "n": n, "rows": 1 + ITERGPR_PROBES,
+                "warmup": ITERGPR_WARMUP, "steps": ITERGPR_STEPS, "lr": ITERGPR_LR,
+                "per_step": per_step, "mll": mll, "window_s": window_s,
+                "steps_per_s": ITERGPR_STEPS / window_s,
+                "ms_per_step": window_s * 1e3 / ITERGPR_STEPS,
+                "launches_timed": window_launches,
+                "b3_ms_per_step_estimate": window_launches / ITERGPR_STEPS
+                * cases[1 + ITERGPR_PROBES]["kernel_ms"],
+                "blocked_route_share": sum(s["blocked_route_s"] for s in timed_steps) / window_s,
+                "peak_mb": max(s["peak_mb"] for s in per_step),
+                "first_solve_true_rel_residual": true_rel,
+                "stop_rule_rel_residual": rule,
+                "tolerance": "MLL strictly improving; B3 launches = sum(steps + 1) per step; "
+                             "the first fused solve's true relative residual per row <= 2x "
+                             "sqrt(threshold)",
+                "nvidia_smi": card_line, "wall_s": ph.elapsed()}
+            emit(train_record)
+            b3.update({"itergpr_launches": window_launches, "itergpr_steps": len(timed_steps)})
+
+        # -- serve_itergpr_pallas: posterior (B3, R = 1) and predict_in_batches
+        with Phase("serve_itergpr_pallas", 50) as ph:
+            model = make_itergpr(True)
+            data = (x, y)
+
+            def rmse(p):
+                post = model.posterior(p, data)
+                mean, none = predict_in_batches(model, p, xt, batch_size=1024, train_data=data,
+                                                mean_only=True, posterior=post)
+                require(none is None and mean.shape == (ITERGPR_TEST, 1),
+                        f"serve_itergpr_pallas: mean shape {tuple(mean.shape)}")
+                return float(torch.sqrt(torch.mean(torch.square(mean - yt))))
+
+            rmse_before = rmse(params)
+            solves.clear()
+            zero_counts()
+            ph.wait()
+            t0 = time.monotonic()
+            post = model.posterior(trained, data)
+            ph.wait()
+            t1 = time.monotonic()
+            mean, _ = predict_in_batches(model, trained, xt, batch_size=1024, train_data=data,
+                                         mean_only=True, posterior=post)
+            ph.wait()
+            t2 = time.monotonic()
+            rmse_after = float(torch.sqrt(torch.mean(torch.square(mean - yt))))
+            mean_v, var_v = predict_in_batches(model, trained, xt[:ITERGPR_VAR_BATCH],
+                                               batch_size=ITERGPR_VAR_BATCH, train_data=data,
+                                               posterior=post)
+            ph.wait()
+            t3 = time.monotonic()
+            serve_launches, serve_steps = read_counts(), steps_of(solves)
+            require(len(serve_steps) == 2 and all(c for _, c in serve_steps)
+                    and serve_launches == want_launches(True, solves),
+                    f"serve_itergpr_pallas: launches {serve_launches}, solves {serve_steps}")
+            require(rmse_after < rmse_before,
+                    f"serve_itergpr_pallas: test RMSE {rmse_after} after, {rmse_before} before")
+            variance = float(kernel.variance(trained["kernel"]))
+            require(bool(torch.isfinite(mean_v).all() and torch.isfinite(var_v).all()),
+                    "serve_itergpr_pallas: non-finite mean or variance")
+            require(float(var_v.max()) <= variance and float(var_v.min()) >= -1e-4,
+                    f"serve_itergpr_pallas: variances in [{float(var_v.min())}, "
+                    f"{float(var_v.max())}], kernel variance {variance}")
+            emit({"phase": "serve_itergpr_pallas", "n": n, "test_points": ITERGPR_TEST,
+                  "rmse_before": rmse_before, "rmse_after": rmse_after,
+                  "noise_floor_rmse": ITERGPR_NOISE_FLOOR_RMSE,
+                  "posterior_build_s": t1 - t0, "mean_s": t2 - t1,
+                  "mean_points_per_s": ITERGPR_TEST / (t2 - t1),
+                  "var_batch": ITERGPR_VAR_BATCH, "mean_var_s": t3 - t2,
+                  "mean_var_points_per_s": ITERGPR_VAR_BATCH / (t3 - t2),
+                  "launches": serve_launches, "cg_steps": [k for k, _ in serve_steps],
+                  "var_min": float(var_v.min()), "var_max": float(var_v.max()),
+                  "kernel_variance": variance,
+                  "tolerance": "RMSE below its value before training; variances finite, at "
+                               "most the kernel variance, at least -1e-4",
+                  "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+    finally:
+        cg_implicit_module._implicit_cg_impl = impl
+        cg_implicit_module.matvec_vjp = logdet_module.matvec_vjp = vjp_impl
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2395,6 +3000,10 @@ def main() -> int:
                               "data": (x_train, y_train, x_test, y_test),
                               "gram_record": kernels["gram_matvec"]})
 
+    # -- the exact GP through B3 at N = 131,072 ---------------------------------
+    itergpr_phases({"device": device, "card_line": card_line,
+                    "sm_clock_hz": sm_clock_mhz * 1e6, "gram_record": kernels["gram_matvec"]})
+
     sources = {"pallas_matvec": ("cggp_tpu_torch/csrc/pallas_matvec.cu",
                                  "cggp_tpu/ops/pallas_matvec.py:65"),
                "pallas_cg_solve": ("cggp_tpu_torch/csrc/pallas_cg.cu",
@@ -2408,7 +3017,7 @@ def main() -> int:
          "bound_ms": kernels[name]["bound_ms"], "bound_by": kernels[name]["bound_by"],
          "library_ms": kernels[name]["library_ms"],
          **{k: v for k, v in kernels[name].items()
-            if k.startswith(("train_", "multi_", "loop_", "implicit_"))}}
+            if k.startswith(("train_", "multi_", "loop_", "implicit_", "itergpr_"))}}
         for name in ("pallas_matvec", "pallas_cg_solve", "gram_matvec")]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

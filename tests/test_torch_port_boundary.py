@@ -12,6 +12,7 @@ import torch
 import cggp_tpu_torch
 from cggp_tpu_torch.models.base import GaussianLikelihood
 from cggp_tpu_torch.models.cggp import CGGP
+from cggp_tpu_torch.models.itergpr import IterGPR
 from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.kernels import Matern32
 from cggp_tpu_torch.selection import covertree_update_inducing_parameters
@@ -51,7 +52,8 @@ def test_port_package_and_smoke_script_exist():
     for module in ("selection/__init__", "selection/covertree", "selection/kmeans",
                    "selection/native", "selection/points", "selection/update",
                    "training/batching", "training/monitor", "ops/rff", "ops/cg_implicit",
-                   "ops/logdet", "models/rowcg", "models/implicit", "utils/store"):
+                   "ops/logdet", "models/rowcg", "models/implicit", "utils/store",
+                   "models/gpr", "models/itergpr"):
         assert ROOT / "cggp_tpu_torch" / f"{module}.py" in PORT_SOURCES, module
 
 
@@ -74,7 +76,7 @@ def test_native_source_includes_nothing_of_jax_or_the_jax_package(path):
 
 @pytest.mark.parametrize("entry", ["resolve_device", "cggp_init_params", "likelihood",
                                    "params_from_numpy", "index_iterator", "covertree_update",
-                                   "load_posterior"])
+                                   "load_posterior", "itergpr_init_params"])
 def test_entry_points_without_a_card_raise_instead_of_using_the_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(1e-6))
@@ -92,6 +94,8 @@ def test_entry_points_without_a_card_raise_instead_of_using_the_cpu(entry, monke
             covertree_update_inducing_parameters((z, z[:, :1]), 0.5, backend="numpy")
         elif entry == "load_posterior":
             load_posterior("a-posterior-directory")  # the device is resolved before any read
+        elif entry == "itergpr_init_params":
+            IterGPR(kernel=Matern32()).init_params(2)
         else:
             params_from_numpy({"pseudo_u": z})
     # Asking for the CPU works.

@@ -1,7 +1,8 @@
 """The store of the port (``utils/store.py``) against the JAX package's
 (``cggp_tpu/utils/store.py``), both ways: config directories, serving-cache
-files of the dense ``CGGP`` (``"cg"`` and ``"chol"``) and of the matrix-free
-model (``RowCGGPPosterior``) written by one package and served by the other
+files of the dense ``CGGP`` (``"cg"`` and ``"chol"``), of the matrix-free
+model (``RowCGGPPosterior``) and of the exact GPs (``IterGPRPosterior``,
+``GPRPosterior``) written by one package and served by the other
 as the writer serves its in-memory cache, equal fingerprints, refused class
 names, and the port's checkpoints."""
 
@@ -127,6 +128,57 @@ def test_posterior_cache_files_serve_alike_in_both_packages(tmp_path, kind, solv
     again = tstore.load_posterior(tmp_path / "port", device="cpu")
     for got, want in zip(_serve_port(tmodel, again, xq), _serve_port(tmodel, tpost, xq)):
         np.testing.assert_array_equal(got, want)
+
+
+def _exact_gp_pair(kind):
+    """JAX's and the port's exact GP (``IterGPR`` at N = 200 padded to 256 by
+    block 64, or the dense ``GPR``), float64, with the training data and
+    query points."""
+    from cggp_tpu.models.gpr import GPR as JaxGPR
+    from cggp_tpu.models.itergpr import IterGPR as JaxIterGPR
+    from cggp_tpu_torch.models import GPR, IterGPR
+
+    rng = np.random.default_rng(6)
+    x = rng.uniform(-1.5, 1.5, (200, 2))
+    y = np.sin(x.sum(-1, keepdims=True)) + 0.1 * rng.standard_normal((200, 1))
+    if kind == "itergpr":
+        common = dict(error_threshold=1e-16, max_cg_iterations=800, relative_threshold=False,
+                      precondition="pivchol", precond_rank=8, block=64)
+        jmodel = JaxIterGPR(kernel=jkernels.Matern32(), **common)
+        tmodel = IterGPR(kernel=tkernels.Matern32(), **common)
+    else:
+        jmodel, tmodel = JaxGPR(kernel=jkernels.Matern32()), GPR(kernel=tkernels.Matern32())
+    jparams = jmodel.init_params(2, lengthscales=np.array([0.6, 0.8]), dtype=jnp.float64)
+    return jmodel, jparams, tmodel, tstore.params_from_numpy(jparams, device="cpu"), (x, y), \
+        rng.uniform(-1.5, 1.5, (N_QUERY, 2))
+
+
+@pytest.mark.parametrize("kind", ["itergpr", "gpr"])
+def test_exact_gp_cache_files_serve_alike_in_both_packages(tmp_path, kind):
+    """The exact GP caches (``IterGPRPosterior`` with its 56 pad rows and
+    mask, ``GPRPosterior``), written by one package and served by the other
+    as the writer serves its own, at ``CROSS_ATOL`` (each package's own
+    float64 solve of the query rows at absolute 1e-16)."""
+    from cggp_tpu_torch.models import GPRPosterior, IterGPRPosterior
+
+    jmodel, jparams, tmodel, tparams, (x, y), xq = _exact_gp_pair(kind)
+    cls = IterGPRPosterior if kind == "itergpr" else GPRPosterior
+    jpost = jmodel.posterior(jparams, (jnp.asarray(x), jnp.asarray(y)))
+    jstore.save_posterior(tmp_path / "jax", jpost)
+    loaded = tstore.load_posterior(tmp_path / "jax", device="cpu")
+    assert type(loaded) is cls and loaded._fields == jpost._fields
+    if kind == "itergpr":
+        assert loaded.x_train.shape == (256, 2) and float(loaded.mask.sum()) == 200
+    for got, want in zip(_serve_port(tmodel, loaded, xq), _serve_jax(jmodel, jpost, xq)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=CROSS_ATOL)
+    tpost = tmodel.posterior(tparams, (x, y))
+    tstore.save_posterior(tmp_path / "port", tpost)
+    desc = json.loads((tmp_path / "port" / "posterior.json").read_text())
+    assert desc["class"] == [f"cggp_tpu.models.{kind}", cls.__name__]
+    jloaded = jstore.load_posterior(tmp_path / "port")
+    assert type(jloaded).__name__ == cls.__name__
+    for got, want in zip(_serve_jax(jmodel, jloaded, xq), _serve_port(tmodel, tpost, xq)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=CROSS_ATOL)
 
 
 def test_fingerprints_are_equal_across_the_packages():
