@@ -7,7 +7,8 @@ Precision rule: the distance cross term ``x @ z.T`` and every CG matvec must
 run in IEEE fp32 (or fp64), never TF32 — reduced matmul precision makes
 ``Kmm + Lambda`` indefinite and CG diverges (``cggp_tpu/ops/kernels.py``,
 ``scaled_squared_distance``).  :func:`resolve_device` therefore switches
-TF32 off for CUDA matmuls whenever it hands out a CUDA device.
+TF32 (and bf16 products' reduced-precision sums) off for CUDA matmuls
+whenever it hands out a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,8 +28,12 @@ def default_float() -> torch.dtype:
 def require_ieee_fp32_matmul() -> None:
     """Set, process-wide, IEEE fp32 CUDA matmuls: TF32 off and float32
     matmul precision "highest" (both are PyTorch's defaults; a caller that
-    changed them would silently break CG convergence)."""
+    changed them would silently break CG convergence), and fp32 sums in
+    bf16 products (the bf16 CG routes ask for fp32 accumulation, as JAX's
+    ``preferred_element_type`` does; PyTorch's default lets cuBLAS reduce
+    split sums in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")
 
 

@@ -20,8 +20,11 @@ pads the inducing set with exactly decoupled points behind an
 ``inducing_mask``.
 
 Serving: :meth:`CGGP.predict_f` (one fused solve), :meth:`CGGP.posterior`
-with ``solver="cg"``, ``"chol"`` or ``"auto"`` (a Lanczos conditioning
-estimate picks), :meth:`posterior_mean` and :meth:`posterior_predict`.
+with ``solver="cg"``, ``"chol"``, ``"lanczos"`` (the LOVE cache of rank
+``serving_lanczos_rank``: variances from two skinny products, conservative)
+or ``"auto"`` (a Lanczos conditioning estimate picks ``"chol"`` or
+``"cg"``, never ``"lanczos"``), :meth:`posterior_mean` and
+:meth:`posterior_predict`.
 
 Probes come from ``rademacher``, looked up in this module when a step runs,
 drawn from a ``torch.Generator`` (``key``) on the parameters' device.
@@ -30,8 +33,7 @@ Re-clustering: :meth:`CGGP.assign_clusters` swaps in a host selection
 (re-padded to the pinned capacity on capacity-padded params) and
 :meth:`CGGP.assign_clusters_device` is the fixed-capacity swap.
 
-Not ported yet: ``posterior(solver="lanczos")`` (ROADMAP Queue A item 7)
-raises ``NotImplementedError``; ``posterior_extend`` (item 10) is absent.
+Not ported yet: ``posterior_extend`` (ROADMAP Queue A item 10) is absent.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from cggp_tpu_torch.ops.cg import (CGStats, CholPreconditioner, ConjugateGradien
 from cggp_tpu_torch.ops.cg_implicit import pad_inducing
 from cggp_tpu_torch.ops.linalg import add_diagonal
 from cggp_tpu_torch.ops.logdet import (eval_logdet, eval_logdet_from_solves,
-                                       lanczos_extremal_eigs, rademacher, slq_logdet)
+                                       lanczos_extremal_eigs, lanczos_quad_cache_rows,
+                                       love_seed_row, love_variance, rademacher, slq_logdet)
 from cggp_tpu_torch.ops.rff import rff_preconditioner
 
 # precondition="auto" picks the exact factor up to this M (the JAX package's
@@ -70,6 +73,8 @@ class CGGP(ClusterGP):
     logdet_variant: str = "zero"  # "zero" (reference semantics) | "slq"
     slq_lanczos_iters: int = 25
     fuse_kl_solves: bool = True
+    # Rank of the opt-in posterior(solver="lanczos") LOVE serving cache.
+    serving_lanczos_rank: int = 128
     precondition: Optional[str] = None  # None | "rff" | "pivchol" | "chol" | "auto"
     precond_rank: int = 128  # factor rank (for "rff": Fourier bases L, rank 2L)
 
@@ -441,19 +446,20 @@ class CGGP(ClusterGP):
         """Everything that depends only on ``params``: ``nu = (Kmm +
         Lambda)^{-1} u`` and either the system matrix with its
         preconditioner state (``solver="cg"``: each batch solves its ``Kmn``
-        block by CG) or its Cholesky factor (``solver="chol"``: two
-        triangular solves per batch); ``"auto"`` picks by the Lanczos
-        conditioning estimate.  ``key`` is the generator of the ``"rff"``
-        sketch (seeded 0 when None).
+        block by CG), its Cholesky factor (``solver="chol"``: two
+        triangular solves per batch) or the LOVE cache (``solver=
+        "lanczos"``: ``R`` [k, M] from ``k = min(serving_lanczos_rank, M)``
+        Lanczos steps of ``[1, M] @ (Kmm + Lambda)`` seeded with ``u``, so a
+        batch's variance is two skinny products, a conservative
+        over-estimate exact at ``k = M``; the mean stays the CG ``nu``'s);
+        ``"auto"`` picks ``"chol"`` or ``"cg"`` by the Lanczos conditioning
+        estimate.  ``key`` is the generator of the ``"rff"`` sketch (seeded
+        0 when None).
 
         A failed factorization leaves a NaN factor, as ``jnp.linalg.cholesky``
         does, so the serving guard in ``predict_in_batches`` can report it."""
         if solver not in ("auto", "chol", "cg", "lanczos"):
             raise ValueError(f"unknown posterior solver: {solver!r}")
-        if solver == "lanczos":
-            raise NotImplementedError(
-                "posterior(solver='lanczos') (the LOVE cache) arrives with a later slice of "
-                "the port (ROADMAP Queue A item 7); pass solver='cg', 'chol' or 'auto'")
         kp = params["kernel"]
         z = params["inducing_points"]
         u = params["pseudo_u"]
@@ -471,6 +477,16 @@ class CGGP(ClusterGP):
                                  lam=var[:, 0])
         precond = self._build_preconditioner(kp, z, kmm, var, key)
         nu = self.conjugate_gradient(kmm_lambda, u, preconditioner=precond)
+        if solver == "lanczos":
+            a = kmm_lambda.detach()
+            rank = min(int(self.serving_lanczos_rank), int(z.shape[0]))
+            with torch.no_grad():
+                lanczos_r = lanczos_quad_cache_rows(lambda rows: torch.matmul(rows, a),
+                                                    love_seed_row(u.T), rank)
+            # No system matrix kept: the LOVE path never solves again.
+            return CGGPPosterior(kernel_params=kp, inducing_points=z, kmm_lambda=None,
+                                 nu=nu, precond_state=(), chol=None, lanczos_r=lanczos_r,
+                                 inducing_mask=mask, lam=var[:, 0])
         return CGGPPosterior(kernel_params=kp, inducing_points=z, kmm_lambda=kmm_lambda,
                              nu=nu, precond_state=() if precond is None else precond.state,
                              chol=None, inducing_mask=mask, lam=var[:, 0])
@@ -484,9 +500,13 @@ class CGGP(ClusterGP):
     def posterior_predict(self, post: "CGGPPosterior", x_new: torch.Tensor,
                           full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Mean and variance from the cache: the [M, T] Kmn block through
-        two triangular solves (``"chol"``) or one CG solve (``"cg"``)."""
+        two triangular solves (``"chol"``), one CG solve (``"cg"``) or two
+        skinny products with the LOVE rows (``"lanczos"``)."""
         kp = post.kernel_params
         kmn = self._masked_kmn(kp, post.inducing_points, x_new, post.inducing_mask)  # [M, T]
+        if post.lanczos_r is not None:
+            knn = self.kernel.K(kp, x_new) if full_cov else self.kernel.K_diag(kp, x_new)
+            return kmn.T @ post.nu, love_variance(post.lanczos_r, kmn.T, knn, full_cov)
         if post.chol is not None:
             inv_kmn = torch.cholesky_solve(kmn, post.chol)
         else:
@@ -512,7 +532,7 @@ class CGGPPosterior(NamedTuple):
     nu: torch.Tensor  # [M, 1] = (Kmm + Lambda)^{-1} pseudo_u
     precond_state: Tuple  # () identity, a 3-tuple Spectral state, a dict Chol state
     chol: Optional[torch.Tensor] = None  # [M, M] lower Cholesky of Kmm + Lambda
-    lanczos_r: Optional[torch.Tensor] = None  # LOVE cache: always None (no "lanczos" solver)
+    lanczos_r: Optional[torch.Tensor] = None  # [k, M] LOVE quadratic-form cache ("lanczos")
     inducing_mask: Optional[torch.Tensor] = None  # [M] 1 real / 0 pad; None unpadded
     lam: Optional[torch.Tensor] = None  # [M] diagonal Lambda the cache was built with
 

@@ -4,7 +4,10 @@
 Non-trainable ``pseudo_u`` (cluster y-means) and ``cluster_counts``;
 ``diag_variance = likelihood_variance / counts`` is derived, not learned.
 Its ``predict_f`` and ``elbo`` are the Cholesky oracle the CG serving and
-training paths are held against.
+training paths are held against.  Serving: :meth:`ClusterGP.posterior`
+factorizes ``Kmm + diag(var)`` once into a :class:`CholPosterior`;
+:meth:`posterior_mean` is then one skinny product a batch and
+:meth:`posterior_predict` one triangular solve.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from cggp_tpu_torch.config import DeviceLike, default_float, resolve_device
-from cggp_tpu_torch.models.base import GaussianLikelihood, minibatch_scale
+from cggp_tpu_torch.models.base import CholPosterior, GaussianLikelihood, minibatch_scale
 from cggp_tpu_torch.ops.kernels import Kernel
 from cggp_tpu_torch.ops.linalg import add_diagonal
 
@@ -131,3 +134,32 @@ class ClusterGP:
             knn = self.kernel.K_diag(kp, x_new)
             fvar = (knn - torch.sum(torch.square(a), dim=0))[:, None]
         return kmn.T @ kuu_inv_u, fvar
+
+    # -- cached serving -----------------------------------------------------------
+
+    def posterior(self, params: Dict) -> CholPosterior:
+        """The params-only serving cache: the Cholesky factor of ``Kmm +
+        diag(var)`` and ``nu = (Kmm + diag(var))^{-1} u``, built once."""
+        kp = params["kernel"]
+        z = params["inducing_points"]
+        var = self.diag_variance(params)
+        chol = torch.linalg.cholesky(add_diagonal(self.kernel.K(kp, z), var[:, 0]))
+        nu = torch.cholesky_solve(params["pseudo_u"], chol)
+        return CholPosterior(kernel_params=kp, inducing_points=z, chol=chol, nu=nu)
+
+    def posterior_mean(self, post: CholPosterior, x_new: torch.Tensor) -> torch.Tensor:
+        """Cache-served mean: one [M, T] kernel block and a skinny product."""
+        kmn = self.kernel.K(post.kernel_params, post.inducing_points, x_new)
+        return kmn.T @ post.nu
+
+    def posterior_predict(self, post: CholPosterior, x_new: torch.Tensor,
+                          full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Cache-served mean and variance: one triangular solve a batch."""
+        kp = post.kernel_params
+        kmn = self.kernel.K(kp, post.inducing_points, x_new)  # [M, T]
+        a = torch.linalg.solve_triangular(post.chol, kmn, upper=False)
+        if full_cov:
+            fvar = (self.kernel.K(kp, x_new) - a.T @ a)[None, ...]
+        else:
+            fvar = (self.kernel.K_diag(kp, x_new) - torch.sum(torch.square(a), dim=0))[:, None]
+        return kmn.T @ post.nu, fvar

@@ -48,6 +48,7 @@ class ImplicitCGGP(RowSolveCGGP):
             block=self.block, use_pallas=self.use_pallas,
             relative_threshold=self.relative_threshold)
         object.__setattr__(self, "_solve", solve)
+        object.__setattr__(self, "_route_matvec", solve.route_matvec)
 
         def matvec(kp, z, lam, mask, rows):
             return blocked_kuu_matvec(self.kernel, kp, z, lam, rows, block=self.block, mask=mask)

@@ -19,7 +19,10 @@ matrix-free machinery, so the system is never built:
   RFF sketch, in the spectral form;
 * serving: :meth:`IterGPR.posterior` caches ``alpha = (K + sigma^2 I)^{-1}
   y``; the mean is one skinny product per batch and the variance one solve
-  of the [T, N] cross-kernel rows.
+  of the [T, N] cross-kernel rows, or with ``solver="lanczos"`` two skinny
+  products with the LOVE cache of rank ``serving_lanczos_rank`` (built
+  through the solve route's matvec, B3 under ``use_pallas``, from the
+  masked first target row).
 
 The chunked family (:meth:`IterGPR.log_marginal_likelihood_chunked`,
 :meth:`IterGPR.posterior_chunked`, :meth:`IterGPR.posterior_predict_chunked`)
@@ -28,10 +31,7 @@ the search direction carried from chunk to chunk.
 
 N is padded to the panel height's multiple with exactly decoupled pad rows
 (:func:`~cggp_tpu_torch.ops.cg_implicit.pad_inducing` and a mask).  Random
-draws come from a ``torch.Generator`` where JAX takes a PRNG key.  Not
-ported yet, each raising ``NotImplementedError``:
-``posterior(solver="lanczos")`` and the serving of a LOVE cache (ROADMAP
-Queue A item 7).
+draws come from a ``torch.Generator`` where JAX takes a PRNG key.
 """
 
 from __future__ import annotations
@@ -51,14 +51,9 @@ from cggp_tpu_torch.ops.cg import cg_loop, precond_apply_or_identity
 from cggp_tpu_torch.ops.cg_implicit import (blocked_kuu_matvec, kernel_precond_state,
                                             make_implicit_cg, pad_inducing)
 from cggp_tpu_torch.ops.kernels import Kernel
-from cggp_tpu_torch.ops.logdet import (make_matfree_logdet_from_solves, rademacher,
+from cggp_tpu_torch.ops.logdet import (lanczos_quad_cache_rows, love_seed_row, love_variance,
+                                       make_matfree_logdet_from_solves, rademacher,
                                        slq_value_rows, slq_value_rows_chunked)
-
-
-def _lanczos_refused(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the LOVE cache (solver='lanczos') arrives with a later slice of the port "
-        "(ROADMAP Queue A item 7); use solver='cg'")
 
 
 def _detached(kp: Dict) -> Dict:
@@ -160,13 +155,18 @@ class IterGPR:
     relative_threshold: bool = True
     block: int = 4096
     use_pallas: bool = False
+    # Rank of the opt-in posterior(solver="lanczos") LOVE serving cache
+    # (conservative variances, exact at rank = N; never picked by "auto").
+    serving_lanczos_rank: int = 128
 
     def __post_init__(self):
         if self.logdet_variant not in ("zero", "slq"):
             raise ValueError(f"unknown logdet_variant: {self.logdet_variant!r}")
-        object.__setattr__(self, "_solve", make_implicit_cg(
+        solve = make_implicit_cg(
             self.kernel, self.error_threshold, self.max_cg_iterations, block=self.block,
-            use_pallas=self.use_pallas, relative_threshold=self.relative_threshold))
+            use_pallas=self.use_pallas, relative_threshold=self.relative_threshold)
+        object.__setattr__(self, "_solve", solve)
+        object.__setattr__(self, "_route_matvec", solve.route_matvec)
 
         def matvec(kp, x, lam, mask, rows):
             return blocked_kuu_matvec(self.kernel, kp, x, lam, rows, block=self.block, mask=mask)
@@ -333,32 +333,46 @@ class IterGPR:
 
     # -- serving (the posterior cache; the twin of GPR.posterior) ----------------
 
+    def _love_rows(self, kp, x_pad, lam, mask, y_rows, matvec_rows=None) -> torch.Tensor:
+        """The LOVE cache ``R`` [k, N_pad]: ``k = min(serving_lanczos_rank,
+        N_pad)`` Lanczos steps through ``matvec_rows``, by default the solve
+        route's matvec (B3 under ``use_pallas``; the JAX package takes the
+        blocked matvec here, the same operator), seeded with the masked
+        first target row."""
+        with torch.no_grad():
+            if matvec_rows is None:
+                matvec_rows = self._route_matvec(kp, x_pad, lam, mask)
+            rank = min(int(self.serving_lanczos_rank), int(x_pad.shape[0]))
+            return lanczos_quad_cache_rows(matvec_rows, love_seed_row(y_rows[:1], mask[None, :]),
+                                           rank)
+
     def posterior(self, params: Dict, data: Tuple, solver: str = "cg") -> "IterGPRPosterior":
         """One CG solve for ``alpha``; the cache then serves means with no
-        solve and variances with one [T, N] solve per batch.  ``"auto"`` is
-        ``"cg"``."""
+        solve and variances with one [T, N] solve per batch, or with
+        ``solver="lanczos"`` from the LOVE rows of :meth:`_love_rows` (two
+        skinny products a batch, conservative, exact at rank = N).
+        ``"auto"`` is ``"cg"``."""
         if solver not in ("auto", "cg", "lanczos"):
             raise ValueError(f"unknown posterior solver: {solver!r}")
-        if solver == "lanczos":
-            raise _lanczos_refused("IterGPR.posterior")
         x, y = data
         kp = params["kernel"]
         x_pad, lam, mask, y_rows = self._padded_system(params, x, y)
         state = self._precond_state(kp, x_pad, lam, mask)
         alpha, _ = self._solve(kp, x_pad, lam, y_rows, state, mask)
+        lanczos_r = (self._love_rows(kp, x_pad, lam, mask, y_rows) if solver == "lanczos"
+                     else None)
         return IterGPRPosterior(kernel_params=kp, x_train=x_pad, lam=lam, mask=mask,
-                                alpha=alpha, precond_state=state)
+                                alpha=alpha, precond_state=state, lanczos_r=lanczos_r)
 
     def posterior_chunked(self, params: Dict, data: Tuple, solver: str = "cg",
                           chunk_iterations: int = 8,
                           max_chunks: int = 64) -> "IterGPRPosterior":
         """:meth:`posterior` with the ``alpha`` solve in host-driven chunks on
-        the blocked matvec; the same cache.  Warns when the chunk budget runs
-        out before the stop rule is met."""
+        the blocked matvec; the same cache (with ``solver="lanczos"`` also
+        the LOVE rows, one Lanczos step a dispatch already).  Warns when the
+        chunk budget runs out before the stop rule is met."""
         if solver not in ("auto", "cg", "lanczos"):
             raise ValueError(f"unknown posterior solver: {solver!r}")
-        if solver == "lanczos":
-            raise _lanczos_refused("IterGPR.posterior_chunked")
         x, y = data
         kp = _detached(params["kernel"])
         with torch.no_grad():
@@ -372,8 +386,12 @@ class IterGPR:
                           f"(max residual err {float(torch.max(err)):.3e}) — raise "
                           "max_chunks/chunk_iterations or loosen error_threshold",
                           RuntimeWarning)
+        lanczos_r = None
+        if solver == "lanczos":
+            lanczos_r = self._love_rows(kp, x_pad, lam, mask, y_rows,
+                                        lambda rows: self._matvec(kp, x_pad, lam, mask, rows))
         return IterGPRPosterior(kernel_params=kp, x_train=x_pad, lam=lam, mask=mask,
-                                alpha=alpha, precond_state=state)
+                                alpha=alpha, precond_state=state, lanczos_r=lanczos_r)
 
     def posterior_mean(self, post: "IterGPRPosterior", x_new: torch.Tensor) -> torch.Tensor:
         kmn = self.kernel.K(post.kernel_params, x_new, post.x_train)
@@ -389,11 +407,13 @@ class IterGPR:
 
     def posterior_predict(self, post: "IterGPRPosterior", x_new: torch.Tensor,
                           full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Mean and variance: one solve of the [T, N] rows ``K(x_new, X)``."""
-        if post.lanczos_r is not None:
-            raise _lanczos_refused("IterGPR.posterior_predict of a LOVE cache")
+        """Mean and variance: one solve of the [T, N] rows ``K(x_new, X)``,
+        or with a LOVE cache two skinny products."""
         kp = post.kernel_params
         kmn = self.kernel.K(kp, x_new, post.x_train) * post.mask[None, :]  # [T, N]
+        if post.lanczos_r is not None:
+            knn = self.kernel.K(kp, x_new) if full_cov else self.kernel.K_diag(kp, x_new)
+            return kmn @ post.alpha.T, love_variance(post.lanczos_r, kmn, knn, full_cov)
         inv_kmn, _ = self._solve(kp, post.x_train, post.lam, kmn, post.precond_state,
                                  post.mask)
         return self._predictive(post, x_new, kmn, inv_kmn, full_cov)
@@ -434,4 +454,4 @@ class IterGPRPosterior(NamedTuple):
     mask: torch.Tensor  # [N_pad] 1 real / 0 pad
     alpha: torch.Tensor  # [Q, N_pad] rows = ((K + sigma^2 I)^{-1} y)^T
     precond_state: Tuple  # () = identity, else the SpectralPreconditioner state
-    lanczos_r: Optional[torch.Tensor] = None  # LOVE cache: None (solver="lanczos" not ported)
+    lanczos_r: Optional[torch.Tensor] = None  # [k, N_pad] LOVE cache (solver="lanczos")

@@ -6,6 +6,7 @@ The model is expressed against hooks a subclass wires in its
 
     _solve(kp, z, lam, rhs [R, M], precond_state, mask) -> (solution, CGStats)
     _matvec(kp, z, lam, mask, rows [R, M]) -> rows @ (K*mask + diag(lam))
+    _route_matvec(kp, z, lam, mask) -> (rows -> rows @ A) on the solve's route
     _slq_value(kp, z, lam, mask, probes [P, M]) -> scalar   (logdet="slq")
     _pad_multiple_for(m) -> int   (inducing count padded to this multiple)
 
@@ -28,9 +29,10 @@ and ``"rff"`` preconditioners (the sketch from a generator seeded
 :meth:`assign_clusters_device` (fixed capacity).
 
 Serving: ``predict_f``, ``posterior(solver="cg")`` (``"auto"`` resolves to
-``"cg"``), ``posterior_mean`` and ``posterior_predict``.  Not ported yet:
-``posterior(solver="lanczos")`` (LOVE serving, ROADMAP Queue A item 7)
-raises ``NotImplementedError``.
+``"cg"``) or ``posterior(solver="lanczos")`` (the LOVE cache of rank
+``serving_lanczos_rank``, built through the solve route's matvec — B3 under
+``use_pallas`` — from the masked ``u``, so the basis never leaves the real
+coordinates), ``posterior_mean`` and ``posterior_predict``.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from cggp_tpu_torch.models.base import minibatch_scale
 from cggp_tpu_torch.models.clustergp import ClusterGP, _as_tensor
 from cggp_tpu_torch.ops.cg import CGStats
 from cggp_tpu_torch.ops.cg_implicit import kernel_precond_state, pad_inducing
-from cggp_tpu_torch.ops.logdet import (make_matfree_eval_logdet,
+from cggp_tpu_torch.ops.logdet import (lanczos_quad_cache_rows, love_seed_row, love_variance,
+                                       make_matfree_eval_logdet,
                                        make_matfree_logdet_from_solves,
                                        make_matfree_slq_logdet, rademacher)
 
@@ -69,6 +72,10 @@ class RowSolveCGGP(ClusterGP):
     # gradient is exact); "slq": a matrix-free Lanczos quadrature value.
     logdet_variant: str = "zero"  # "zero" | "slq"
     slq_lanczos_iters: int = 25
+    # Rank of the opt-in posterior(solver="lanczos") LOVE serving cache:
+    # variances are conservative over-estimates, exact at rank = M, so
+    # "auto" never picks it.
+    serving_lanczos_rank: int = 128
 
     def _wire_logdets(self) -> None:
         """Call at the end of the subclass ``__post_init__`` (after
@@ -315,10 +322,22 @@ class RowSolveCGGP(ClusterGP):
         with its Lanczos conditioning estimate, is not ported)."""
         return "cg"
 
+    def _love_rows(self, kp, z, lam, mask, seed: torch.Tensor) -> torch.Tensor:
+        """The LOVE cache ``R`` [k, M_pad] of the masked system, ``k =
+        min(serving_lanczos_rank, M_pad)`` Lanczos steps through the solve
+        route's matvec (B3 under ``use_pallas``; the JAX package takes the
+        blocked matvec here, the same operator)."""
+        with torch.no_grad():
+            rank = min(int(self.serving_lanczos_rank), int(z.shape[0]))
+            return lanczos_quad_cache_rows(self._route_matvec(kp, z, lam, mask),
+                                           love_seed_row(seed, mask[None, :]), rank)
+
     def posterior(self, params: Dict, solver: str = "auto") -> "RowCGGPPosterior":
         """The params-only serving state: the u-solve ``nu`` and the
         preconditioner; ``posterior_predict`` then solves only the Kmn rows.
-        ``"auto"`` is ``"cg"``."""
+        ``"lanczos"`` also builds the LOVE rows (:meth:`_love_rows`, seeded
+        with the masked ``u``), so a batch's variance is two skinny
+        products, no solve.  ``"auto"`` is ``"cg"``."""
         if solver == "auto":
             solver = self.resolve_serving_solver(params)
         if solver == "chol":
@@ -326,11 +345,7 @@ class RowSolveCGGP(ClusterGP):
                 f"{type(self).__name__} serves matrix-free; solver='chol' would "
                 "materialise the [M, M] system this model exists to avoid — "
                 "use 'cg' or 'auto'")
-        if solver == "lanczos":
-            raise NotImplementedError(
-                "posterior(solver='lanczos') (the LOVE cache) arrives with a later "
-                "slice of the port; pass solver='cg'")
-        if solver != "cg":
+        if solver not in ("cg", "lanczos"):
             raise ValueError(f"unknown posterior solver: {solver!r}")
         kp = params["kernel"]
         z = params["inducing_points"]
@@ -339,8 +354,10 @@ class RowSolveCGGP(ClusterGP):
         mask = params["inducing_mask"][:, 0]
         precond_state = self._precond_state(kp, z, lam, mask)
         nu, _ = self._solve(kp, z, lam, u.T, precond_state, mask)
+        lanczos_r = (self._love_rows(kp, z, lam, mask, (u * mask[:, None]).T)
+                     if solver == "lanczos" else None)
         return RowCGGPPosterior(kernel_params=kp, inducing_points=z, lam=lam, mask=mask,
-                                nu=nu, precond_state=precond_state)
+                                nu=nu, precond_state=precond_state, lanczos_r=lanczos_r)
 
     def posterior_mean(self, post: "RowCGGPPosterior", x_new: torch.Tensor) -> torch.Tensor:
         """CG-free serving mean: one skinny ``K(x, Z) @ nu`` product."""
@@ -350,10 +367,14 @@ class RowSolveCGGP(ClusterGP):
     def posterior_predict(self, post: "RowCGGPPosterior", x_new: torch.Tensor,
                           full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Mean and variance from the cache: one CG solve of the [T, M] Kmn
-        rows (u-solve and preconditioner build amortized)."""
+        rows (u-solve and preconditioner build amortized), or with a LOVE
+        cache two skinny products."""
         kp = post.kernel_params
         z = post.inducing_points
         kmn = self.kernel.K(kp, x_new, z) * post.mask[None, :]  # [T, M]
+        if post.lanczos_r is not None:
+            knn = self.kernel.K(kp, x_new) if full_cov else self.kernel.K_diag(kp, x_new)
+            return kmn @ post.nu.T, love_variance(post.lanczos_r, kmn, knn, full_cov)
         inv_kmn, _ = self._solve(kp, z, post.lam, kmn, post.precond_state, post.mask)
         if full_cov:
             knn = self.kernel.K(kp, x_new)
@@ -375,4 +396,4 @@ class RowCGGPPosterior(NamedTuple):
     nu: torch.Tensor  # [1, M_pad] row = ((Kmm + Lambda)^{-1} u)^T
     precond_state: Tuple  # () = identity, else SpectralPreconditioner state
     chol: Optional[torch.Tensor] = None  # always None: served matrix-free
-    lanczos_r: Optional[torch.Tensor] = None  # LOVE cache: always None (no "lanczos" solver)
+    lanczos_r: Optional[torch.Tensor] = None  # [k, M_pad] LOVE cache (solver="lanczos")

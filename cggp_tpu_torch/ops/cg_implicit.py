@@ -290,4 +290,7 @@ def make_implicit_cg(kernel: Kernel, error_threshold: float, max_iterations: int
             solver, names, mask, precond_state, rhs, z, lam, *(kp[k] for k in names))
         return solution, CGStats(steps=steps, error=error, converged=converged)
 
+    # The route's matvec builder, ``route_matvec(kp, z, lam, mask) -> (rows ->
+    # rows @ A)``: B3 with ``use_pallas``, else the blocked route.
+    solve.route_matvec = solver.matvec
     return solve

@@ -21,15 +21,28 @@ Randomness comes from a ``torch.Generator`` where JAX takes a PRNG key;
 :func:`rademacher` draws on the generator's device.  Callers look it up by
 name when they run, so tests can substitute the JAX package's probes.
 
+* The LOVE serving cache (Pleiss et al. 2018, matrix-free): a rank-k
+  Lanczos decomposition of the system from one seed row
+  (:func:`love_seed_row`) gives ``R`` [k, M] with ``x^T A^{-1} x ~=
+  ||R x||^2`` (:func:`lanczos_quad_cache_rows`), and
+  :func:`love_variance` turns a batch's cross-kernel rows into
+  conservative predictive variances with two skinny products.
+* :func:`lanczos_extremal_eigs_rows` — the extremal Ritz values through a
+  row-convention matvec.
+
+Normal start vectors come from :func:`normal_draw` (the JAX package draws
+them from ``PRNGKey(0)``), also looked up by name, so tests can substitute
+JAX's draws.
+
 The host-chunked names (``lanczos_tridiag_rows_chunked``,
-``slq_value_rows_chunked``) are the same functions: in eager torch every
-Lanczos step is a dispatch of its own already.  Not ported yet: the LOVE
-serving cache (``lanczos_quad_cache_rows``, ``love_variance``; ROADMAP
-Queue A item 7).
+``slq_value_rows_chunked``, ``lanczos_quad_cache_rows_chunked``) are the
+same functions: in eager torch every Lanczos step is a dispatch of its own
+already.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -44,6 +57,11 @@ def rademacher(generator: torch.Generator, shape, dtype: torch.dtype) -> torch.T
     """+-1 probes in ``dtype``, drawn from ``generator`` on its device."""
     bits = torch.randint(0, 2, tuple(shape), generator=generator, device=generator.device)
     return (2 * bits - 1).to(dtype)
+
+
+def normal_draw(generator: torch.Generator, shape, dtype: torch.dtype) -> torch.Tensor:
+    """Standard normal draws in ``dtype`` from ``generator``, on its device."""
+    return torch.randn(tuple(shape), generator=generator, device=generator.device, dtype=dtype)
 
 
 def _logdet_grad(df, matrix, probes, precond_apply, precond_state, threshold,
@@ -238,7 +256,7 @@ def lanczos_extremal_eigs(matrix: torch.Tensor, key: torch.Generator, num_iters:
     under-estimated, percent-level after a few dozen steps on kernel
     spectra.  Returns two 0-d tensors on the matrix's device."""
     n = matrix.shape[-1]
-    v0 = torch.randn((n,), generator=key, device=key.device, dtype=matrix.dtype)
+    v0 = normal_draw(key, (n,), matrix.dtype)
     alphas, betas = _lanczos_tridiag(matrix, v0, num_iters)
     return _ritz_extremes(alphas, betas)
 
@@ -353,12 +371,14 @@ def make_matfree_slq_logdet(slq_value, matvec, solve, precond_state_fn=None):
     return logdet
 
 
-def lanczos_tridiag_rows(matvec_rows, v0_rows: torch.Tensor, num_iters: int):
+def lanczos_tridiag_rows(matvec_rows, v0_rows: torch.Tensor, num_iters: int,
+                         return_basis: bool = False):
     """Batched matrix-free Lanczos with full reorthogonalisation (twice).
 
     ``matvec_rows`` maps [P, M] rows to ``v @ A`` rows; all P start vectors
     advance together, one matvec a step.  Returns ``(alphas [k, P], betas
-    [k - 1, P])``."""
+    [k - 1, P])``, and with ``return_basis`` also the orthonormal basis
+    ``[k, P, M]`` (zero rows past an early termination)."""
     p, m = v0_rows.shape
     dtype, device = v0_rows.dtype, v0_rows.device
     norms = torch.linalg.vector_norm(v0_rows, dim=-1, keepdim=True)
@@ -383,6 +403,8 @@ def lanczos_tridiag_rows(matvec_rows, v0_rows: torch.Tensor, num_iters: int):
                                        torch.zeros_like(w))
         alphas[i] = alpha
         betas[i] = beta
+    if return_basis:
+        return alphas, betas[:-1], basis
     return alphas, betas[:-1]
 
 
@@ -395,10 +417,90 @@ def slq_value_rows(matvec_rows, probes_rows: torch.Tensor, lanczos_iters: int) -
     return _slq_from_tridiag(alphas, betas, probes_rows)
 
 
+def love_seed_row(u_row: torch.Tensor, mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Krylov seed of the LOVE cache: the cache's own right-hand side
+    ``u_row`` [1, M] (pre-masked if padded), or, where that row is all
+    zero (a hyperparameters-only config dir) and would give a zero basis
+    and prior variances, a normal row from a generator seeded 0
+    (:func:`normal_draw`) times ``mask_row`` [1, M], so the Krylov space
+    never leaves the real coordinates.  The norm is decided on the device:
+    no host read."""
+    u_row = u_row.detach()
+    gen = torch.Generator(device=u_row.device).manual_seed(0)
+    fallback = normal_draw(gen, u_row.shape, u_row.dtype)
+    if mask_row is not None:
+        fallback = fallback * mask_row.detach()
+    return torch.where(torch.linalg.vector_norm(u_row) > 0.0, u_row, fallback)
+
+
+def love_variance(lanczos_r: torch.Tensor, kmn_rows: torch.Tensor, knn: torch.Tensor,
+                  full_cov: bool):
+    """Predictive (co)variance from a LOVE cache: ``quad(x) ~= ||R k(x)||^2``
+    with ``R`` [k, M], an under-estimate of the exact quadratic form, so
+    the variance is a conservative over-estimate.  ``kmn_rows`` [T, M]
+    (dense callers pass ``kmn.T``); ``knn`` the [T] kernel diagonal, or the
+    [T, T] block with ``full_cov``.  Returns [T, 1], or [1, T, T]."""
+    rk = lanczos_r @ kmn_rows.T  # [k, T]
+    if full_cov:
+        return (knn - rk.T @ rk)[None, ...]
+    return (knn - torch.sum(torch.square(rk), dim=0))[:, None]
+
+
+def lanczos_quad_cache_rows(matvec_rows, start_row: torch.Tensor, rank: int) -> torch.Tensor:
+    """Rank-``k`` quadratic-form cache of ``A^{-1}`` (LOVE serving, done
+    matrix-free): from a k-step Lanczos decomposition ``A ~ Q^T T Q`` (Q
+    [k, M] orthonormal rows) returns ``R = L_T^{-1} Q``, ``T = L_T L_T^T``,
+    so ``x^T A^{-1} x ~= ||R x||^2``.  The Gauss-quadrature estimate
+    under-approximates the quadratic form of an SPD ``A``, converging as
+    ``rank`` grows, exact at ``rank = M``.  ``start_row`` [1, M] seeds the
+    Krylov space (:func:`love_seed_row`); ``rank`` matvecs."""
+    alphas, betas, basis = lanczos_tridiag_rows(matvec_rows, start_row, rank,
+                                                return_basis=True)
+    return _love_cache_from_tridiag(alphas, betas, basis)
+
+
+def _love_cache_from_tridiag(alphas: torch.Tensor, betas: torch.Tensor,
+                             basis: torch.Tensor) -> torch.Tensor:
+    """``R = L_T^{-1} Q`` from a one-seed Lanczos decomposition.  Past the
+    Krylov space's exhaustion beta is reorthogonalisation residue, not an
+    exact zero, and the basis rows after it are normalised noise that would
+    corrupt T and R (rank above the dimension inflated quadratic forms 1.7x
+    in the JAX package before this cut): cut at ``sqrt(eps) * max(max|a|,
+    max b)``, give T an identity block there and zero those basis rows, so
+    their R rows vanish."""
+    a, b = alphas[:, 0], betas[:, 0]
+    q = basis[:, 0, :]  # [k, M]
+    dtype = q.dtype
+    tol = math.sqrt(torch.finfo(dtype).eps) * torch.maximum(
+        torch.max(torch.abs(a)), torch.max(b) if b.numel() else torch.zeros_like(a[0]))
+    bad = torch.cat([torch.zeros((1,), dtype=torch.bool, device=a.device), b <= tol])
+    used = torch.cumsum(bad.to(torch.int32), dim=0) == 0
+    q = torch.where(used[:, None], q, torch.zeros_like(q))
+    diag = torch.where(used, a, torch.ones_like(a))
+    off = torch.where(used[1:], b, torch.zeros_like(b))
+    t = _tridiag(diag, off)
+    chol = torch.linalg.cholesky(t)
+    return torch.linalg.solve_triangular(chol, q, upper=False)  # [k, M]
+
+
 # The JAX package's host-chunked Lanczos (one bounded dispatch a step) runs
 # the same recurrence, so the same numbers: in eager torch they are these.
 lanczos_tridiag_rows_chunked = lanczos_tridiag_rows
 slq_value_rows_chunked = slq_value_rows
+lanczos_quad_cache_rows_chunked = lanczos_quad_cache_rows
+
+
+def lanczos_extremal_eigs_rows(matvec_rows, key: torch.Generator, n: int, dtype,
+                               num_iters: int = 64, mask: Optional[torch.Tensor] = None):
+    """Matrix-free :func:`lanczos_extremal_eigs` through a row-convention
+    matvec (``[1, M] -> v @ A``), from a normal start row drawn from
+    ``key``; ``mask`` keeps the Krylov space (and so the estimate) inside
+    the real coordinates of a padded system."""
+    v0 = normal_draw(key, (1, n), dtype)
+    if mask is not None:
+        v0 = v0 * mask.reshape(1, -1)
+    alphas, betas = lanczos_tridiag_rows(matvec_rows, v0, num_iters)
+    return _ritz_extremes(alphas[:, 0], betas[:, 0])
 
 
 def _slq_from_tridiag(alphas: torch.Tensor, betas: torch.Tensor,

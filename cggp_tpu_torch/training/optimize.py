@@ -38,14 +38,18 @@
   ``posterior_solver="auto"`` is resolved through the model's
   ``resolve_serving_solver``; an auto-picked Cholesky factor that is not
   finite falls back to ``"cg"`` with a warning, an explicit ``"chol"``
-  request raises.
+  request raises.  ``scan="auto"`` sends solve-free caches (Cholesky, LOVE,
+  or ``mean_only``) through :func:`posterior_predict_scan`, the blocks of
+  ``ops.linalg.pad_rows_to_blocks`` with no host read between them (the
+  JAX package's one-dispatch ``lax.map`` sweep); ``batch_size="auto"``
+  sizes the loop's batch by :func:`auto_serving_batch_size`;
+  ``use_posterior=False`` (or a model without a matching cache) runs
+  ``predict_f`` on every batch.
 
 Not ported yet, each raising ``NotImplementedError`` where it is a switch
-of a ported function: ``mesh`` training (ROADMAP Queue A item 12),
-``recluster_fn`` (device re-clustering inside a chunk, item 10),
-``batch_size="auto"``, the one-dispatch scan route, mesh serving and
-serving without the posterior cache (item 7).  The L-BFGS trainers are
-absent (item 9).
+of a ported function: ``mesh`` training and serving (ROADMAP Queue A item
+12) and ``recluster_fn`` (device re-clustering inside a chunk, item 10).
+The L-BFGS trainers are absent (item 9).
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from cggp_tpu_torch.ops.linalg import pad_rows_to_blocks
 from cggp_tpu_torch.training.batching import (batched_indices, minibatch_index_iterator,
                                               seed_from)
 from cggp_tpu_torch.training.monitor import Monitor
@@ -595,10 +600,6 @@ def create_monitor(logdir: Optional[str], metrics_fn: Optional[Callable] = None,
     return monitor
 
 
-def _not_in_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"predict_in_batches: {what} arrives with a later slice of the port")
-
-
 def _posterior_takes_data(model) -> bool:
     """Data-bound models (``GPR``, ``IterGPR``) bind the training set into
     the cache, ``posterior(params, data)``; the variational ones are
@@ -616,6 +617,59 @@ def _posterior_serves_via_cg(post) -> bool:
             and getattr(post, "lanczos_r", None) is None)
 
 
+def auto_serving_batch_size(m: int, n: int, floor: int = 8192, cap: int = 65536,
+                            block_budget: int = 2 ** 27) -> int:
+    """The serving loop's batch for ``batch_size="auto"``, the JAX package's
+    rule: the largest power-of-two ``T`` with ``m * T <= block_budget`` (the
+    [M, T] kernel block), clamped to ``[floor, cap]`` and to the dataset
+    size ``n``, so a small dataset serves as one exact-size block."""
+    t = block_budget // max(int(m), 1)
+    t = 1 << max(t.bit_length() - 1, 0)  # power-of-two floor
+    t = max(floor, min(t, cap))
+    return min(t, max(int(n), 1))
+
+
+def _serving_system_rows(model, params: Dict, train_data) -> Optional[int]:
+    """Rows M of the per-batch serving system: the inducing count of the
+    sparse families, the training size of the data-bound exact models;
+    ``None`` where neither is known."""
+    z = params.get("inducing_points") if hasattr(params, "get") else None
+    if z is not None:
+        return int(z.shape[0])
+    if train_data is not None:
+        return int(train_data[0].shape[0])
+    return None
+
+
+def posterior_predict_scan(model, post, x, batch_size: int = 8192, mean_only: bool = False,
+                           mesh=None):
+    """Whole-dataset serving from a built posterior cache as one sweep: the
+    fixed-size row blocks of :func:`~cggp_tpu_torch.ops.linalg.pad_rows_to_blocks`
+    (the tail padded with copies of row 0), each through the model's
+    ``posterior_predict`` (``posterior_mean`` with ``mean_only``), stacked
+    on the device with no host read between blocks; the JAX package's
+    ``lax.map`` program.  A CG cache (no Cholesky factor and no LOVE rows)
+    warns: its solves read their stop rule on the host every step, so the
+    sweep is no freer of host reads than :func:`predict_in_batches`' loop.
+    Returns ``(mean [N, P], var [N, 1])``, or ``(mean, None)``."""
+    if mesh is not None:
+        raise NotImplementedError("posterior_predict_scan: mesh serving arrives with the "
+                                  "parallel slice of the port (ROADMAP Queue A item 12)")
+    if not mean_only and _posterior_serves_via_cg(post):
+        warnings.warn("posterior_predict_scan: this posterior serves through CG (no chol/LOVE "
+                      "cache): each block's solve reads its stop rule on the host, so the "
+                      "sweep saves nothing over predict_in_batches' loop", RuntimeWarning)
+    n = x.shape[0]
+    blocks = pad_rows_to_blocks(x, min(int(batch_size), n))
+    if mean_only:
+        mu = torch.stack([model.posterior_mean(post, xb) for xb in blocks])
+        return mu.reshape(-1, mu.shape[-1])[:n], None
+    outs = [model.posterior_predict(post, xb, full_cov=False) for xb in blocks]
+    mu = torch.stack([m for m, _ in outs])
+    var = torch.stack([v for _, v in outs])
+    return mu.reshape(-1, mu.shape[-1])[:n], var.reshape(-1, var.shape[-1])[:n]
+
+
 def predict_in_batches(model, params: Dict, x, batch_size=8192,
                        train_data=None, mean_only: bool = False,
                        use_posterior: bool = True, posterior_solver: str = "auto",
@@ -624,43 +678,83 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
     """Posterior ``(mean [N, P], var [N, 1])`` over ``x`` in batches of
     ``batch_size`` rows (``(mean, None)`` with ``mean_only``).
 
-    The posterior cache is built once: ``model.posterior(params)`` for the
-    params-only models, ``model.posterior(params, train_data)`` for the
-    data-bound ones (``GPR``, ``IterGPR``), as the JAX package decides by
-    the signature of ``posterior``.  ``x`` (tensor or array) is moved to the
-    parameters' device and dtype; the last batch is padded with copies of
-    row 0 and the padding dropped.  ``posterior`` serves from a prebuilt
-    cache instead of building one.  A Cholesky cache of a model with a
-    solver choice whose factor is not finite raises ``FloatingPointError``,
-    as an explicit ``"chol"`` request does in the JAX package.  With
-    ``chunk_iterations > 0`` a CG cache of a model with
-    ``posterior_predict_chunked`` serves its mean and variance batches
-    through it (host-driven chunks of that many CG steps)."""
-    if batch_size == "auto":
-        raise _not_in_slice('batch_size="auto"')
-    takes_data = hasattr(model, "posterior") and _posterior_takes_data(model)
-    if not use_posterior or not hasattr(model, "posterior") or \
-            (train_data is not None) != takes_data:
-        raise _not_in_slice("serving without the model's posterior cache")
-    if mesh is not None:
-        raise _not_in_slice("mesh serving")
-    if scan is True:
-        raise _not_in_slice("the one-dispatch scan route")
+    The posterior cache applies when ``use_posterior`` is on and the
+    model's ``posterior`` matches what the caller gives: params-only models
+    without ``train_data``, the data-bound ones (``GPR``, ``IterGPR``) with
+    it, as the JAX package decides by the signature of ``posterior``.  It
+    is built once, or ``posterior`` serves from a prebuilt cache.  Without
+    a cache every batch runs ``predict_f`` (with ``train_data`` where the
+    model's ``predict_f`` takes it); ``mean_only``, ``scan=True`` and
+    ``posterior`` then raise ``ValueError``, as in the JAX package.
 
-    ref = params["likelihood"]["variance"] if takes_data else params["inducing_points"]
+    ``x`` (tensor or array) is moved to the parameters' device and dtype;
+    the last batch is padded with copies of row 0 and the padding dropped.
+    ``batch_size="auto"`` takes :func:`auto_serving_batch_size` of the
+    serving system's rows for the loop and keeps 8192 for the scan.  A
+    Cholesky cache of a model with a solver choice whose factor is not
+    finite raises ``FloatingPointError`` on an explicit ``"chol"`` (or a
+    prebuilt cache) and falls back to ``"cg"`` with a warning on an
+    auto-picked one.  With ``chunk_iterations > 0`` a CG cache of a model
+    with ``posterior_predict_chunked`` serves its mean and variance batches
+    through it.  ``scan``: ``"auto"`` sends solve-free caches (Cholesky,
+    LOVE, or ``mean_only``) through :func:`posterior_predict_scan`,
+    ``True`` every cache, ``False`` none."""
+    if mesh is not None:
+        raise NotImplementedError("predict_in_batches: mesh serving arrives with the parallel "
+                                  "slice of the port (ROADMAP Queue A item 12)")
+    takes_data = hasattr(model, "posterior") and _posterior_takes_data(model)
+    posterior_capable = (use_posterior and hasattr(model, "posterior")
+                         and (train_data is not None) == takes_data)
+    if mean_only and not posterior_capable:
+        raise ValueError("mean_only serving needs a posterior()-capable model")
+    if scan is True and not posterior_capable:
+        raise ValueError("scan=True needs the posterior-cache path (use_posterior=True, a "
+                         "posterior()-capable model, matching train_data)")
+    if posterior is not None and not posterior_capable:
+        raise ValueError("posterior= injection needs the posterior-cache path "
+                         "(use_posterior=True, a posterior()-capable model, matching "
+                         "train_data)")
+
+    if posterior_capable:
+        ref = params["likelihood"]["variance"] if takes_data else params["inducing_points"]
+    else:
+        ref = next(iter(params["kernel"].values()))
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
     x = x.to(device=ref.device, dtype=ref.dtype)
     n = x.shape[0]
+    scan_batch = batch_size
+    if batch_size == "auto":
+        m_rows = _serving_system_rows(model, params, train_data)
+        batch_size = 8192 if m_rows is None else auto_serving_batch_size(m_rows, n)
+        scan_batch = 8192
     batch_size = min(int(batch_size), n)
+    scan_batch = min(int(scan_batch), n)
     num_batches = -(-n // batch_size)
     pad = num_batches * batch_size - n
     if pad:
-        x = torch.cat([x, x[:1].expand(pad, x.shape[-1])], dim=0)
+        x_pad = torch.cat([x, x[:1].expand(pad, x.shape[-1])], dim=0)
+    else:
+        x_pad = x
+    batches = [x_pad[i * batch_size:(i + 1) * batch_size] for i in range(num_batches)]
+
+    if not posterior_capable:
+        if train_data is None:
+            def predict_f(p, xb):
+                return model.predict_f(p, xb, full_cov=False)
+        else:
+            predict_f = bind_predict_fn(model, train_data)
+        outs = [predict_f(params, xb) for xb in batches]
+        return (torch.cat([m for m, _ in outs])[:n], torch.cat([v for _, v in outs])[:n])
 
     takes_solver = "solver" in inspect.signature(model.posterior).parameters
     requested_solver = posterior_solver
-    if posterior is None and posterior_solver == "auto":
+    if posterior is not None:
+        # A prebuilt cache: its own solver fields decide the routing.
+        requested_solver = ("chol" if getattr(posterior, "chol", None) is not None
+                            else "lanczos" if getattr(posterior, "lanczos_r", None) is not None
+                            else "cg")
+    elif posterior_solver == "auto" and takes_solver:
         # Resolved eagerly through the model's own rule where it has one
         # (the Lanczos conditioning estimate of the dense CGGP; "cg" for the
         # matrix-free row models).
@@ -679,7 +773,7 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
             not bool(torch.all(torch.isfinite(torch.diagonal(chol)))):
         # One host check per cache build, never per batch: an explicit (or
         # prebuilt) chol cache raises, an auto-picked one falls back to CG.
-        if requested_solver != "auto" or posterior is not None:
+        if requested_solver != "auto":
             raise FloatingPointError(
                 "posterior(solver='chol'): non-finite Cholesky factor — Kmm+Lambda "
                 "is too ill-conditioned for a raw factorization; use "
@@ -689,20 +783,17 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
                       RuntimeWarning)
         post = build("cg")
 
-    batches = [x[i * batch_size:(i + 1) * batch_size] for i in range(num_batches)]
+    if chunk_iterations > 0 and not mean_only and hasattr(model, "posterior_predict_chunked") \
+            and _posterior_serves_via_cg(post):
+        outs = [model.posterior_predict_chunked(post, xb, chunk_iterations=chunk_iterations)
+                for xb in batches]
+        return torch.cat([m for m, _ in outs])[:n], torch.cat([v for _, v in outs])[:n]
+    solve_free = mean_only or not _posterior_serves_via_cg(post)
+    if scan is True or (scan == "auto" and solve_free):
+        return posterior_predict_scan(model, post, x, batch_size=scan_batch,
+                                      mean_only=mean_only)
     if mean_only:
         means = [model.posterior_mean(post, xb) for xb in batches]
         return torch.cat(means)[:n], None
-    if chunk_iterations > 0 and hasattr(model, "posterior_predict_chunked") \
-            and _posterior_serves_via_cg(post):
-        def predict(xb):
-            return model.posterior_predict_chunked(post, xb, chunk_iterations=chunk_iterations)
-    else:
-        def predict(xb):
-            return model.posterior_predict(post, xb)
-    means, variances = [], []
-    for xb in batches:
-        mu, var = predict(xb)
-        means.append(mu)
-        variances.append(var)
-    return torch.cat(means)[:n], torch.cat(variances)[:n]
+    outs = [model.posterior_predict(post, xb) for xb in batches]
+    return torch.cat([m for m, _ in outs])[:n], torch.cat([v for _, v in outs])[:n]

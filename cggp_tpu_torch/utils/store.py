@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from cggp_tpu_torch.config import DeviceLike, resolve_device
+from cggp_tpu_torch.models.base import CholPosterior
 from cggp_tpu_torch.models.cggp import CGGPPosterior
 from cggp_tpu_torch.models.gpr import GPRPosterior
 from cggp_tpu_torch.models.itergpr import IterGPRPosterior
@@ -49,6 +50,7 @@ _JAX_CLASS_NAMES = {
     RowCGGPPosterior: ("cggp_tpu.models.rowcg", "RowCGGPPosterior"),
     IterGPRPosterior: ("cggp_tpu.models.itergpr", "IterGPRPosterior"),
     GPRPosterior: ("cggp_tpu.models.gpr", "GPRPosterior"),
+    CholPosterior: ("cggp_tpu.models.base", "CholPosterior"),
 }
 _PORT_CLASSES = {name: cls for cls, name in _JAX_CLASS_NAMES.items()}
 _CHECKPOINT_FORMAT = "cggp_tpu_torch checkpoint 1"
@@ -269,7 +271,8 @@ def _decode_pytree(desc, arrays, device: torch.device):
 def save_posterior(dirpath, post) -> None:
     """Write a serving cache (one of the classes of ``_JAX_CLASS_NAMES``:
     :class:`CGGPPosterior`, :class:`RowCGGPPosterior`,
-    :class:`IterGPRPosterior`, :class:`GPRPosterior`) to
+    :class:`IterGPRPosterior`, :class:`GPRPosterior`, :class:`CholPosterior`;
+    LOVE caches included, their ``lanczos_r`` an array field) to
     ``{dirpath}/posterior.{npz,json}``, readable by both packages; dtypes
     are kept exactly."""
     if not (isinstance(post, tuple) and hasattr(post, "_fields")):

@@ -389,7 +389,7 @@ def test_auto_chol_with_a_non_finite_factor_falls_back_to_cg():
 
 @pytest.mark.parametrize("call", ["rff", "lanczos", "key"])
 def test_training_refusals(call):
-    _, _, tmodel, tparams, batch = _models()
+    jmodel, jparams, tmodel, tparams, batch = _models()
     data = tuple(torch.as_tensor(a) for a in batch)
     if call == "rff":
         # precondition="rff" is ported now (it raised here before): the loss
@@ -408,8 +408,14 @@ def test_training_refusals(call):
             np.testing.assert_allclose(got[1][name], w, rtol=0,
                                        atol=1e-5 * max(np.abs(w).max(), 1.0), err_msg=name)
     elif call == "lanczos":
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tmodel.posterior(tparams, solver="lanczos")
+        # LOVE serving is ported (it raised here before): its variances
+        # equal JAX's LOVE cache's (its parity is tests/test_torch_love.py's).
+        xq = torch.as_tensor(batch[0][:16])
+        got = tmodel.posterior_predict(tmodel.posterior(tparams, solver="lanczos"), xq)
+        want = jmodel.posterior_predict(jmodel.posterior(jparams, solver="lanczos"),
+                                        jnp.asarray(batch[0][:16]))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-7)
     else:
         with pytest.raises(ValueError, match="generator"):
             tmodel.elbo(tparams, data)

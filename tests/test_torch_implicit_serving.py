@@ -165,17 +165,24 @@ def test_auto_resolves_to_cg_and_chol_is_refused():
 @pytest.mark.parametrize("call", ["lanczos", "rff", "elbo", "prior_kl", "cg_stats",
                                   "assign_clusters", "slq", "backward"])
 def test_unported_parts_raise(call):
-    """Named for the refusals of the serving slice.  Only ``lanczos`` (LOVE
-    serving, ROADMAP Queue A item 7) still raises; the other cases are
-    ported and run here on the same padded system (their parity with JAX is
-    tests/test_torch_implicit_training.py's)."""
+    """Named for the refusals of the serving slice; every case is ported now
+    and runs here on the same padded system (their parity with JAX is
+    tests/test_torch_implicit_training.py's, LOVE's
+    tests/test_torch_love.py's)."""
     _, _, tmodel, tparams, xq = _models(None, False, 1e-10, jnp.float64)
     x = torch.as_tensor(xq)
     data = (x, x[:, :1])
     gen = torch.Generator().manual_seed(0)
     if call == "lanczos":
-        with pytest.raises(NotImplementedError):
-            tmodel.posterior(tparams, solver="lanczos")
+        # LOVE serving (it raised here before): exact means, variances at or
+        # above the CG cache's (rank 64 = M_pad: the masked Krylov space
+        # exhausts at the 50 real points, so they agree at 1e-8).
+        love = tmodel.posterior(tparams, solver="lanczos")
+        assert tuple(love.lanczos_r.shape) == (64, 64)
+        got = tmodel.posterior_predict(love, x)
+        want = tmodel.posterior_predict(tmodel.posterior(tparams, solver="cg"), x)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-8)
     elif call == "rff":
         rff = ImplicitCGGP(kernel=Matern32(), num_data=400, error_threshold=1e-16,
                            max_cg_iterations=200, block=BLOCK, precondition="rff",

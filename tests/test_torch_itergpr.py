@@ -325,9 +325,11 @@ def test_predict_in_batches_serves_the_data_bound_models(mode):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=ATOL_SERVE_JAX)
         np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=0, atol=1e-12)
         np.testing.assert_allclose(g.numpy(), d.numpy(), rtol=0, atol=ATOL_SERVE_DENSE)
-    # Without the training data a data-bound model has no cache to build
-    # (JAX would serve through predict_f: item 7).
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # Without the training data a data-bound model has no cache to build:
+    # both packages serve through predict_f, which needs the data.
+    with pytest.raises(TypeError, match="x_new"):
+        jax_predict_in_batches(jmodel, jparams, jnp.asarray(xq))
+    with pytest.raises(TypeError, match="x_new"):
         predict_in_batches(tmodel, tparams, xq)
 
 
@@ -349,14 +351,16 @@ def test_validation_errors():
     with pytest.raises(ValueError, match="logdet_value"):
         tmodel.log_marginal_likelihood_chunked(tparams, (x, y), probes=np.eye(16),
                                                logdet_value="sql")
-    for call in (lambda: tmodel.posterior(tparams, (x, y), solver="lanczos"),
-                 lambda: tmodel.posterior_chunked(tparams, (x, y), solver="lanczos")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
-    # A LOVE cache written by the JAX package is refused when served.
-    post = tmodel.posterior(tparams, (x, y))._replace(lanczos_r=torch.zeros(4, 16))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmodel.posterior_predict(post, torch.as_tensor(x[:3]))
+    with pytest.raises(ValueError, match="posterior solver"):
+        tmodel.posterior_chunked(tparams, (x, y), solver="qr")
+    # The LOVE cache is ported (it raised here before): built by both
+    # builders, it serves with no solve (its parity with JAX is
+    # tests/test_torch_love.py's).
+    for build in (tmodel.posterior, tmodel.posterior_chunked):
+        post = build(tparams, (x, y), solver="lanczos")
+        assert tuple(post.lanczos_r.shape) == (16, 16)
+        mean, var = tmodel.posterior_predict(post, torch.as_tensor(x[:3]))
+        assert mean.shape == var.shape == (3, 1) and bool(torch.all(var > 0))
 
 
 class _Largest(TorchDispatchMode):

@@ -268,5 +268,27 @@ def test_pallas_resident_initial_solution_matches_jax():
     {"matvec_impl": "xla_bf16"},
 ])
 def test_unported_switches_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        ConjugateGradient(1e-6, **kwargs)
+    """Named for the refusals of the first slices: only a route neither
+    package has still raises.  The mixed-precision routes and the
+    compensated dot are ported (their parity with JAX is
+    tests/test_torch_solver_family.py's): each solves a system well inside
+    the bf16 envelope (lambda = 0.5) to its rule, xla_bf16 (no refinement;
+    its flag reads the true residual) to a rule above its floor (relative
+    1e-2 on 0.5 |r|^2), and lands within that rule's distance of the exact
+    solution (|r| / lambda_min)."""
+    if kwargs.get("matvec_impl") == "typo":
+        with pytest.raises(NotImplementedError):
+            ConjugateGradient(1e-6, **kwargs)
+        return
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-1, 1, (64, 3))
+    r = np.sqrt(3 * np.sum((x[:, None] - x[None]) ** 2, -1))
+    a = (1 + r) * np.exp(-r) + 0.5 * np.eye(64)
+    b = rng.standard_normal((64, 3))
+    rel = 1e-2 if kwargs.get("matvec_impl") == "xla_bf16" else 1e-12
+    cg = ConjugateGradient(rel, relative_threshold=True, **kwargs)
+    got, stats = cg.solve_with_stats(torch.as_tensor(a), torch.as_tensor(b))
+    assert bool(stats.converged)
+    exact = np.linalg.solve(a, b)
+    bound = np.sqrt(2 * rel * 0.5 * np.sum(b ** 2, 0)) / 0.5
+    assert np.all(np.linalg.norm(got.numpy() - exact, axis=0) <= bound)
