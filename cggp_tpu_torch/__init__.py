@@ -26,14 +26,21 @@ and the config-dir / posterior store; and the exact GP: the dense ``GPR``
 and the matrix-free ``IterGPR`` (fused and chunked marginal likelihood,
 posterior and serving, through B3 with ``use_pallas=True``), with
 ``train_full_batch_adam``, ``train_chunked_adam`` and data-bound
-``predict_in_batches``.
+``predict_in_batches``; LOVE serving and the mixed-precision CG family;
+the baselines ``SGPR`` and ``LpSVGP``, ``PathwiseClusterGP`` with the
+pathwise serving cache and ``rff_sample``, the four L-BFGS trainers
+(scipy's L-BFGS-B and ``optax.lbfgs``'s, ported), and ``data.py``'s
+loaders with ``Config``.
 
 Entry points default to ``device="cuda"`` and raise when no card is present
 unless the caller asks for ``device="cpu"``; they never fall back quietly.
 """
 
-from cggp_tpu_torch.config import default_float, require_ieee_fp32_matmul, resolve_device
+from cggp_tpu_torch.config import (Config, default_config, default_float,
+                                   require_ieee_fp32_matmul, resolve_device,
+                                   set_default_config)
 
 __version__ = "0.1.0"
 
-__all__ = ["default_float", "require_ieee_fp32_matmul", "resolve_device", "__version__"]
+__all__ = ["Config", "default_config", "set_default_config", "default_float",
+           "require_ieee_fp32_matmul", "resolve_device", "__version__"]

@@ -1,7 +1,13 @@
 """Numerics configuration and device resolution (port of ``cggp_tpu/config.py``).
 
-The JAX package resolves its default float from the ambient x64 mode; the
-port reads ``torch.get_default_dtype()`` the same way.
+:class:`Config` carries the reference's three global numerics settings
+(float dtype, jitter, positive minimum) as one explicit frozen object;
+``set_default_config`` is process-global.  The JAX package resolves its
+default float from the ambient x64 mode; the port reads
+``torch.get_default_dtype()`` the same way, and
+:func:`enable_x64_if_needed` sets it to float64 where a config asks for
+it.  :func:`enable_nan_checks` is ``torch.autograd.set_detect_anomaly``
+behind a flag, off by default.
 
 Precision rule: the distance cross term ``x @ z.T`` and every CG matvec must
 run in IEEE fp32 (or fp64), never TF32 — reduced matmul precision makes
@@ -13,11 +19,66 @@ whenever it hands out a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Numerics knobs, the reference's three global settings.
+
+    Attributes:
+        dtype_name: "float32" or "float64" (the reference's
+            ``default_float()``).
+        jitter: diagonal jitter of the ``Kuu`` builders that ask for it
+            (SGPR's); the CG models build ``Kuu`` with jitter 0.
+        positive_minimum: lower bound of the positive bijector (0.0 keeps
+            each component's own bound).
+    """
+
+    dtype_name: str = "float64"
+    jitter: float = 1e-6
+    positive_minimum: float = 0.0
+
+    @property
+    def dtype(self) -> torch.dtype:
+        if self.dtype_name not in _DTYPES:
+            raise ValueError(f"unknown dtype_name {self.dtype_name!r}; choose from "
+                             f"{sorted(_DTYPES)}")
+        return _DTYPES[self.dtype_name]
+
+    def with_updates(self, **kwargs) -> "Config":
+        return dataclasses.replace(self, **kwargs)
+
+
+_DEFAULT = Config()
+
+
+def default_config() -> Config:
+    return _DEFAULT
+
+
+def set_default_config(config: Config) -> None:
+    global _DEFAULT
+    _DEFAULT = config
+
+
+def enable_x64_if_needed(config: Config) -> None:
+    """Set torch's default dtype to float64 when ``config`` asks for it."""
+    if config.dtype == torch.float64:
+        torch.set_default_dtype(torch.float64)
+
+
+def enable_nan_checks(enabled: bool = True) -> None:
+    """Autograd's anomaly mode behind a flag: a backward pass that makes a
+    NaN raises where it was made (the counterpart of ``jax_debug_nans``)."""
+    torch.autograd.set_detect_anomaly(enabled)
 
 
 def default_float() -> torch.dtype:

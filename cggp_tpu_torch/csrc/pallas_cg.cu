@@ -28,9 +28,11 @@
 //     steps.
 //   * Phase A, pA = p @ A: 128 x 128 output tiles (row tile, column block),
 //     64 x 8 = 512 at R = 8192, taken in turn by the persistent blocks (one
-//     per SM: 150 KB of dynamic shared memory each) through the main loop
-//     B1 uses (tiles::tiled_product, 3xTF32 wgmma, every wgmma group waited
-//     for before the tile is stored).  grid.sync().
+//     per SM: 150 KB of dynamic shared memory each for the ring, 64 KB more
+//     for the outer depth sums) through the main loop B1 uses
+//     (tiles::tiled_product, 3xTF32 wgmma, the depth summed at two levels,
+//     every wgmma group waited for before the tile is stored).
+//     grid.sync().
 //   * Phase B, one warp per row: ONE set of cp.async copies stages the row's
 //     p, r, pA and v in the block's shared memory (idle between products);
 //     from there the warp takes p.pA, writes v and r and takes r.r, then
@@ -468,7 +470,7 @@ extern "C" int cggp_cg_plan(int rows, int m, int device, int* path, int* grid, i
   if ((err = budget(kSmallStreamed, &streamed_budget)) != cudaSuccess) return err;
   *path = kTiled;
   *cols = 0;
-  *smem_bytes = static_cast<long long>(cggp::tiles::kSmemBytes);
+  *smem_bytes = static_cast<long long>(cggp::tiles::kSmemBytes + cggp::tiles::kOuterBytes);
   if (rows <= kSmallRows) {
     const int blocks = sms < m ? sms : m;
     const int c = (m + blocks - 1) / blocks;
@@ -493,7 +495,7 @@ extern "C" int cggp_cg_plan(int rows, int m, int device, int* path, int* grid, i
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   if (*path == kTiled) {
     // Enough blocks for every tile unit or every row's warp, at most what
-    // is resident (1 per SM at 150 KB: 132 on an H100).
+    // is resident (1 per SM at 214 KB: 132 on an H100).
     const int units = (rows + kBlock - 1) / kBlock * cggp::tiles::col_blocks(m);
     const int row_blocks = (rows + kWarps - 1) / kWarps;
     const int wanted = units > row_blocks ? units : row_blocks;

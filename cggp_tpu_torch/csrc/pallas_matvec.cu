@@ -12,7 +12,8 @@
 //     scratch at M = 989); then 128 x 128 output tiles, two warpgroups of
 //     64 x 128 issuing wgmma, over 32-deep stages in a 3-slot cp.async ring
 //     (150 KB of shared memory), A fragments split in registers from the p
-//     rows.
+//     rows, the depth summed at two levels (outer sums every 32 stages in
+//     64 KB more of shared memory; tiled_matvec.cuh).
 //     What bounds it: 2 R M^2 = 1.6e10 flops on 69 MB of operands and
 //     result.  fp32-accurate on the tensor cores that is three TF32 passes,
 //     3 x 1.6e10 / 495 TFLOP/s = 0.097 ms, against 0.239 ms of fp32 FMA
@@ -136,11 +137,11 @@ extern "C" int cggp_pallas_matvec(const float* p, const float* a, float* out, in
                                                               static_cast<uint32_t*>(b_split));
   const cudaError_t split_err = cudaGetLastError();
   if (split_err != cudaSuccess) return split_err;
+  constexpr size_t smem_bytes = cggp::tiles::kSmemBytes + cggp::tiles::kOuterBytes;  // 214 KB
   const cudaError_t attr = cudaFuncSetAttribute(
-      matvec_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(cggp::tiles::kSmemBytes));
+      matvec_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_bytes));
   if (attr != cudaSuccess) return attr;
-  matvec_tiled_kernel<<<grid, kThreads, cggp::tiles::kSmemBytes, s>>>(
+  matvec_tiled_kernel<<<grid, kThreads, smem_bytes, s>>>(
       p, static_cast<const uint32_t*>(b_split), out, rows, m);
   return cudaGetLastError();
 }

@@ -14,9 +14,18 @@
 // 64 x 128 issuing wgmma (mma_3xtf32.cuh), over 32-deep stages in a 3-slot
 // cp.async ring (150 KB of dynamic shared memory); A fragments are split in
 // registers from the p rows, each stage summed on the tensor cores from
-// zero and added to the accumulator in IEEE fp32.  Every copy is
-// cp.async.cg, which reads through L2 and never L1: B2 reads p that other
-// blocks rewrote since its last step, and L1 is not coherent across SMs.
+// zero and added to the accumulator in IEEE fp32.  The depth is summed at
+// two levels: every kFlushStages stages each thread adds its accumulators
+// to its own outer sums in shared memory (kOuterBytes more) and restarts
+// them from zero, as B3 does.  One running sum of all 2 M / 32 stage parts
+// (2048 at M = 32768) rounds at the ulp of the growing sum on every add:
+// 3.0x torch.matmul's error from fp64 at R = 16, M = 32768, 0.50x with the
+// outer sums (chip_smoke.py's solver_family, H100 80GB HBM3 at 700 W; no
+// time added: 8.0 ms a call).  Up to kFlushStages stages (M <= 1024) the
+// outer sum only adds the running sum to zero: the same bits as one level.
+// Every copy is cp.async.cg, which reads through L2 and never L1: B2 reads
+// p that other blocks rewrote since its last step, and L1 is not coherent
+// across SMs.
 //
 // Alignment.  M = 989 is odd, so rows of p are only 4-byte aligned: 16-byte
 // copies, float4 loads and TMA descriptors (global strides must be
@@ -50,6 +59,10 @@ constexpr int kRawWords = kBlock * kRawStride;
 constexpr size_t kSmemBytes =
     sizeof(float) * kSlots * (2 * size_t(kTileWords) + kRawWords);  // 150 KB
 static_assert(2 * 128 == kThreads, "two warpgroups");
+// Two-level depth sums: stages between outer adds, and the outer sums of a
+// block's output tile (thread t's word i at [i][t]).
+constexpr int kFlushStages = 32;
+constexpr size_t kOuterBytes = sizeof(float) * 64 * kThreads;  // 64 KB
 
 __host__ __device__ constexpr int col_blocks(int m) { return (m + kBlock - 1) / kBlock; }
 __host__ __device__ constexpr int stages(int m) { return (m + kStageDepth - 1) / kStageDepth; }
@@ -107,8 +120,9 @@ __device__ __forceinline__ void load_p_tile(const float* p, size_t p_words, int 
 
 // acc = p[row0 : row0 + 128, :] @ A[:, 128 cb : 128 cb + 128] in 3xTF32, for
 // p [rows, m] and A split in b_split (col_blocks column blocks); `smem` is
-// the block's kSmemBytes of dynamic shared memory.  All 256 threads call
-// it.  On return every wgmma and every copy of the tile has completed.
+// the block's kSmemBytes of dynamic shared memory, followed by kOuterBytes
+// for the outer sums.  All 256 threads call it.  On return every wgmma and
+// every copy of the tile has completed.
 __device__ __forceinline__ void tiled_product(const float* p, int rows, int m,
                                               const uint32_t* b_split, int col_blocks, int cb,
                                               int row0, float* smem, float (&acc)[64]) {
@@ -142,8 +156,12 @@ __device__ __forceinline__ void tiled_product(const float* p, int rows, int m,
     return k0 + k < m ? raw_p(stage)[r * kRawStride + row_skew(p, row0 + r, m) + k] : 0.f;
   };
 
+  float* outer = smem + kSmemBytes / sizeof(float);
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 64; ++i) {
+    acc[i] = 0.f;
+    outer[i * kThreads + tid] = 0.f;
+  }
   StageRegs st;
 
   // A caller that loops over tiles (B2) reaches here while the other
@@ -165,7 +183,16 @@ __device__ __forceinline__ void tiled_product(const float* p, int rows, int m,
     __syncthreads();      // everyone's have, and everyone is done with stage s - 1
     load(s + 2);          // into slot (s + 2) % 3, which held stage s - 1
     finish_stage(st, b_tile(s), acc);  // the rest of stage s, slot s % 3 untouched
+    if ((s + 1) % kFlushStages == 0) {  // this thread's own words: no barrier
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        outer[i * kThreads + tid] += acc[i];
+        acc[i] = 0.f;
+      }
+    }
   }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = outer[i * kThreads + tid] + acc[i];
 }
 
 // Accumulator layout of m64n128: warp w of warpgroup wg owns rows

@@ -15,8 +15,9 @@ neither version here pads.  ``pallas_cg_solve.launches`` counts launches.
 Arithmetic.  The kernel has two paths (:func:`pallas_cg_plan`).  On the
 tiled path (above 8 rows, or where the small-R path does not fit) it
 computes the product ``p @ A`` in 3xTF32 on the tensor cores, through the
-main loop of kernel B1 (``csrc/tiled_matvec.cuh``), with A split into its
-TF32 halves once per solve; the dots and updates are IEEE fp32.  On the
+main loop of kernel B1 (``csrc/tiled_matvec.cuh``, the depth summed at two
+levels), with A split into its TF32 halves once per solve; the dots and
+updates are IEEE fp32.  On the
 small-R path (up to 8 rows) everything, the product included, is IEEE fp32
 FMA.  The plain version computes in IEEE fp32 (TF32 stays off);
 :func:`pallas_cg_solve_3xtf32_emulated` is the same loop with the product
@@ -32,7 +33,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from cggp_tpu_torch.ops.pallas_matvec import check_device, check_operand, matmul_3xtf32_emulated
+from cggp_tpu_torch.ops.pallas_matvec import (OUTER_STAGES, check_device, check_operand,
+                                               matmul_3xtf32_emulated)
 
 _MIN_FLOAT = 1e-16
 # The kernel's launch paths, as cggp_cg_plan numbers them.
@@ -71,8 +73,10 @@ def pallas_cg_solve_plain(a: torch.Tensor, rhs: torch.Tensor, threshold: float,
 def pallas_cg_solve_3xtf32_emulated(a: torch.Tensor, rhs: torch.Tensor, threshold: float,
                                     max_iterations: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The same loop with the product in the tiled path's 3xTF32 arithmetic
-    (``matmul_3xtf32_emulated``), everything else IEEE fp32."""
-    return _cg_loop(lambda p: matmul_3xtf32_emulated(p, a), rhs, threshold, max_iterations)
+    (``matmul_3xtf32_emulated``, outer sums every ``OUTER_STAGES`` stages),
+    everything else IEEE fp32."""
+    return _cg_loop(lambda p: matmul_3xtf32_emulated(p, a, outer_every=OUTER_STAGES), rhs,
+                    threshold, max_iterations)
 
 
 def pallas_cg_plan(rows: int, m: int, device: torch.device) -> Dict[str, int | str]:

@@ -33,10 +33,10 @@ from typing import Optional, Union
 import torch
 
 from cggp_tpu_torch.ops.kernels import kernel_value_from_r2, scaled_squared_distance
-from cggp_tpu_torch.ops.pallas_matvec import check_device, check_operand, matmul_3xtf32_emulated
+from cggp_tpu_torch.ops.pallas_matvec import (OUTER_STAGES, check_device, check_operand,
+                                              matmul_3xtf32_emulated)
 
 MAX_DIM = 32  # features per point the kernel takes (csrc/pallas_gram.cu kMaxDim)
-OUTER_STAGES = 32  # stages between the tiled launch's outer sums (kFlushStages)
 _KERNEL_IDS = {"se": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
 Variance = Union[torch.Tensor, float]

@@ -12,7 +12,9 @@ Arithmetic.  Above 8 rows the kernel computes in 3xTF32 on the tensor
 cores: each operand is split into TF32 halves ``hi + lo`` and each product
 taken as ``lo hi + hi lo + hi hi``, every 32-deep stage summed from zero on
 the tensor cores in two parts, each added to the running sum in IEEE fp32,
-which keeps fp32-level error (``csrc/mma_3xtf32.cuh``).  Up to 8 rows it is
+which keeps fp32-level error (``csrc/mma_3xtf32.cuh``); the depth is summed
+at two levels, the running sum added to an outer sum every
+``OUTER_STAGES`` stages (``csrc/tiled_matvec.cuh``).  Up to 8 rows it is
 an IEEE fp32 FMA GEMV.  The plain version computes in IEEE fp32 (TF32 stays
 off).
 :func:`matmul_3xtf32_emulated` repeats the 3xTF32 arithmetic in plain
@@ -29,6 +31,9 @@ import torch.nn.functional as F
 # Depth of one stage of the 3xTF32 kernels: its products are summed from
 # zero on the tensor cores and the sum is added to the running fp32 sum.
 TF32_STAGE = 32
+# Stages between the outer sums of B1's, B2's and B3's two-level depth sums
+# (kFlushStages in csrc/tiled_matvec.cuh and csrc/pallas_gram.cu).
+OUTER_STAGES = 32
 
 
 def check_operand(name: str, t: torch.Tensor, shape) -> None:
@@ -90,8 +95,8 @@ def matmul_3xtf32_emulated(a: torch.Tensor, b: torch.Tensor, truncate: bool = Fa
     two steps' ``hi hi``.  Inside a part each large product is added to the
     part's sum and the result rounded to float32, to nearest, or toward
     zero with ``truncate`` as the tensor cores do; the parts are added to
-    the running sum in order in IEEE float32 (with ``outer_every``, B3's
-    two levels: every ``outer_every`` stages the running sum is added to an
+    the running sum in order in IEEE float32 (with ``outer_every``, the
+    kernels' two levels: every ``outer_every`` stages the running sum is added to an
     outer sum and restarts from zero).  Not modelled: the roundings
     after each small product (they go first, while the part's sum is
     small)."""

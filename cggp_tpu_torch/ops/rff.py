@@ -1,5 +1,5 @@
-"""Random Fourier features for preconditioning (port of ``cggp_tpu/ops/rff.py``,
-the sketch and the preconditioner).
+"""Random Fourier features (port of ``cggp_tpu/ops/rff.py``): the sketch, the
+preconditioner and prior samples.
 
 Spectral sampling: for the squared-exponential kernel the spectral density
 is a diagonal Gaussian with standard deviation ``1 / lengthscale``; for
@@ -13,9 +13,8 @@ PRNG key.  torch's gamma sampler takes no generator, so ``chi2(nu)`` is
 drawn as the sum of ``nu`` squared standard normals, exact for the integer
 ``nu`` of Matern 1/2, 3/2 and 5/2 (nu = 1, 3, 5).  The draws are the
 port's own: the same generator seed does not give the JAX package's
-frequencies.
-
-Not ported yet: ``rff_sample`` (prior samples, ROADMAP Queue A item 8).
+frequencies.  :func:`rff_sample` draws theta first, then the [S, 2L]
+weights, from the one generator (JAX splits its key into the two).
 """
 
 from __future__ import annotations
@@ -28,6 +27,14 @@ from cggp_tpu_torch.ops.cg import SpectralPreconditioner
 from cggp_tpu_torch.ops.kernels import Kernel, KernelParams
 
 _SMOOTHNESS = {"matern12": 1, "matern32": 3, "matern52": 5}
+
+
+def standard_normal(generator: torch.Generator, shape, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``N(0, 1)`` draws of ``shape`` from ``generator`` (on its own
+    device), returned on ``device`` in ``dtype``."""
+    return torch.randn(tuple(shape), generator=generator, device=generator.device,
+                       dtype=dtype).to(device)
 
 
 def basis_theta_parameter(kernel: Kernel, params: KernelParams, num_bases: int,
@@ -44,8 +51,7 @@ def basis_theta_parameter(kernel: Kernel, params: KernelParams, num_bases: int,
     dtype, dim = scale.dtype, scale.shape[-1]
 
     def normal(*shape):
-        return torch.randn(shape, generator=generator, device=generator.device,
-                           dtype=dtype).to(scale.device)
+        return standard_normal(generator, shape, dtype, scale.device)
 
     if kernel.name == "se":
         return normal(num_bases, dim) * scale[None, :]
@@ -79,3 +85,14 @@ def rff_preconditioner(kernel: Kernel, params: KernelParams, z: torch.Tensor, la
     build it from detached inputs whenever the kernel or Z change."""
     factor = rff_basis(z, kernel, params, num_bases, generator)  # [M, 2L]
     return SpectralPreconditioner(factor, lam.reshape(-1))
+
+
+def rff_sample(inputs: torch.Tensor, kernel: Kernel, params: KernelParams, num_bases: int,
+               generator: torch.Generator, num_samples: int = 1) -> torch.Tensor:
+    """Prior GP samples at ``inputs``: ``w @ U^T`` of shape [num_samples, N]
+    for ``U`` from :func:`rff_basis` and ``w ~ N(0, I_{2L})``, both drawn
+    from ``generator``, theta first."""
+    bases = rff_basis(inputs, kernel, params, num_bases, generator)  # [N, 2L]
+    weights = standard_normal(generator, (num_samples, bases.shape[-1]), bases.dtype,
+                              bases.device)
+    return weights @ bases.T

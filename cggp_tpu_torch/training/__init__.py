@@ -8,7 +8,11 @@ from cggp_tpu_torch.training.optimize import (adam, bind_predict_fn, create_moni
                                               make_cg_stats_callback, make_metrics_callback,
                                               make_param_callback, predict_in_batches,
                                               train_chunked_adam, train_full_batch_adam,
-                                              train_using_adam_and_update)
+                                              train_using_adam_and_update,
+                                              train_using_device_lbfgs,
+                                              train_using_lbfgs_and_update,
+                                              train_vanilla_using_lbfgs,
+                                              train_vanilla_using_lbfgs_and_standard_ip_update)
 
 __all__ = [
     "minibatch_iterator",
@@ -25,4 +29,8 @@ __all__ = [
     "train_chunked_adam",
     "train_full_batch_adam",
     "train_using_adam_and_update",
+    "train_using_device_lbfgs",
+    "train_using_lbfgs_and_update",
+    "train_vanilla_using_lbfgs",
+    "train_vanilla_using_lbfgs_and_standard_ip_update",
 ]

@@ -46,10 +46,15 @@
   ``use_posterior=False`` (or a model without a matching cache) runs
   ``predict_f`` on every batch.
 
+* L-BFGS: :func:`train_using_lbfgs_and_update` (scipy's L-BFGS-B over
+  the raveled trainable leaves, ``update_fn`` and the monitor in its
+  callback), :func:`train_using_device_lbfgs` (``optax.lbfgs``'s two-loop
+  recursion and zoom line search, the vectors on the device and the line
+  search's decisions on the host) and the two vanilla variants.
+
 Not ported yet, each raising ``NotImplementedError`` where it is a switch
 of a ported function: ``mesh`` training and serving (ROADMAP Queue A item
 12) and ``recluster_fn`` (device re-clustering inside a chunk, item 10).
-The L-BFGS trainers are absent (item 9).
 """
 
 from __future__ import annotations
@@ -431,6 +436,356 @@ def train_chunked_adam(params: Dict, value_grad_fn: Callable, iterations: int,
                       "budget unconverged — raise max_chunks/chunk_iterations or loosen the CG "
                       "target", RuntimeWarning)
     return params
+
+
+# ---------------------------------------------------------------------------
+# L-BFGS
+# ---------------------------------------------------------------------------
+
+
+def _sorted_items(tree):
+    """``(path, leaf)`` pairs in sorted-key order, the order in which
+    ``jax.flatten_util.ravel_pytree`` lays a dict of arrays out."""
+    if isinstance(tree, dict):
+        return [(f"{k}/{path}" if path else str(k), leaf) for k in sorted(tree)
+                for path, leaf in _sorted_items(tree[k])]
+    return [("", tree)]
+
+
+def _ravel(tree) -> Tuple[torch.Tensor, Callable]:
+    """``(flat, unravel)``: the leaves raveled in ``ravel_pytree``'s order
+    into one detached vector, and the map from such a vector back to the
+    tree (each leaf a view of it, so gradients flow, in its leaf's dtype)."""
+    items = _sorted_items(tree)
+    flat = torch.cat([leaf.detach().reshape(-1) for _, leaf in items])
+    sizes = [leaf.numel() for _, leaf in items]
+
+    def unravel(vec: torch.Tensor):
+        parts = {path: part.reshape(leaf.shape).to(leaf.dtype)
+                 for (path, leaf), part in zip(items, torch.split(vec, sizes))}
+
+        def rebuild(node, prefix):
+            if isinstance(node, dict):
+                return {k: rebuild(v, f"{prefix}{k}/") for k, v in node.items()}
+            return parts[prefix[:-1]]
+
+        return rebuild(tree, "")
+
+    return flat, unravel
+
+
+def _flat_mask(trainable_mask: Optional[Dict], params: Dict, flat: torch.Tensor) -> torch.Tensor:
+    """The trainable mask raveled like the parameters, as a bool vector."""
+    if trainable_mask is None:
+        return torch.ones_like(flat, dtype=torch.bool)
+    expanded = _expand_trainable_mask(trainable_mask, params)
+    return torch.cat([torch.full((leaf.numel(),), bool(m), dtype=torch.bool, device=flat.device)
+                      for (_, leaf), (_, m) in zip(_sorted_items(params),
+                                                   _sorted_items(expanded))])
+
+
+def _flat_value_and_grad(loss_fn: Callable, unravel: Callable, x: torch.Tensor):
+    """``loss_fn(unravel(x))`` and its gradient with respect to ``x`` (zeros
+    where the loss does not reach), both detached."""
+    xv = x.detach().requires_grad_()
+    loss = loss_fn(unravel(xv))
+    (grad,) = torch.autograd.grad(loss, xv, allow_unused=True)
+    return loss.detach(), torch.zeros_like(x) if grad is None else grad
+
+
+def train_using_lbfgs_and_update(params: Dict, loss_fn: Callable, max_iterations: int,
+                                 update_fn: Optional[Callable[[Dict], Dict]] = None,
+                                 trainable_mask: Optional[Dict] = None,
+                                 monitor: Optional[Monitor] = None) -> Dict:
+    """scipy's L-BFGS-B over the raveled trainable leaves, the JAX
+    package's trainer: ``loss_fn(params)`` (deterministic) and its gradient
+    by autograd on the parameters' device, one host read of both per
+    evaluation, in float64 on the host.  Frozen leaves are carried outside
+    the vector (their gradients zeroed), so ``update_fn`` may change them
+    between iterations; ``update_fn(params) -> params`` and then
+    ``monitor(iteration, params)`` run in scipy's callback after every
+    iteration, and the monitor is flushed at the end.  ``update_fn`` must
+    not change a shape."""
+    from scipy.optimize import minimize
+
+    if max_iterations <= 0:
+        return params
+    flat0, unravel = _ravel(params)
+    mask_flat = _flat_mask(trainable_mask, params, flat0)
+    state = {"params": params, "iteration": 0}
+
+    def merged(x64) -> torch.Tensor:
+        x = torch.as_tensor(np.asarray(x64), dtype=flat0.dtype, device=flat0.device)
+        return torch.where(mask_flat, x, _ravel(state["params"])[0])
+
+    def objective(x64):
+        loss, grad = _flat_value_and_grad(loss_fn, unravel, merged(x64))
+        grad = torch.where(mask_flat, grad, torch.zeros_like(grad))
+        host = torch.cat([loss.reshape(1).to(grad.dtype), grad]).cpu().double().numpy()
+        return float(host[0]), host[1:]
+
+    def callback(x64):
+        state["params"] = unravel(merged(x64))
+        if update_fn is not None:
+            state["params"] = update_fn(state["params"])
+        if monitor is not None:
+            monitor(state["iteration"], state["params"])
+        state["iteration"] += 1
+
+    result = minimize(objective, flat0.cpu().double().numpy(), jac=True, method="L-BFGS-B",
+                      options={"maxiter": int(max_iterations)}, callback=callback)
+    final = unravel(merged(result.x))
+    if monitor is not None:
+        monitor.flush()
+    return final
+
+
+# optax.scale_by_zoom_linesearch's constants at optax.lbfgs's defaults
+# (optax 0.2.6): max_linesearch_steps, slope_rtol, curv_rtol,
+# approx_dec_rtol, stepsize_precision and increase_factor.
+_LS_MAX_STEPS = 20
+_LS_SLOPE_RTOL = 1e-4
+_LS_CURV_RTOL = 0.9
+_LS_APPROX_DEC_RTOL = 1e-6
+_LS_STEPSIZE_PRECISION = 1e-5
+_LS_INCREASE_FACTOR = 2.0
+
+
+def _nan_max(a, b):
+    return np.float64(np.nan) if np.isnan(a) or np.isnan(b) else np.float64(max(a, b))
+
+
+def _nan_min(a, b):
+    return np.float64(np.nan) if np.isnan(a) or np.isnan(b) else np.float64(min(a, b))
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """The critical point of the cubic through ``(a, fa)`` with slope
+    ``fpa`` at ``a``, ``(b, fb)`` and ``(c, fc)``; NaN when there is none."""
+    db, dc = b - a, c - a
+    denom = (db * dc) ** 2 * (db - dc)
+    v0, v1 = fb - fa - fpa * db, fc - fa - fpa * dc
+    big_a = (dc ** 2 * v0 - db ** 2 * v1) / denom
+    big_b = (-(dc ** 3) * v0 + db ** 3 * v1) / denom
+    radical = big_b * big_b - 3.0 * big_a * fpa
+    return a + (-big_b + np.sqrt(radical)) / (3.0 * big_a)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """The critical point of the quadratic through ``(a, fa)`` with slope
+    ``fpa`` and ``(b, fb)``."""
+    db = b - a
+    return a - fpa / (2.0 * ((fb - fa - fpa * db) / db ** 2))
+
+
+def _zoom_linesearch(evaluate: Callable, value_init, slope_init):
+    """``optax.zoom_linesearch``'s interval search and zoom (Nocedal and
+    Wright, Algorithms 3.5 and 3.6, with Hager and Zhang's approximate
+    decrease), on host float64 scalars.  ``evaluate(stepsize) -> (value,
+    slope)`` evaluates the objective along the direction.  Returns the
+    stepsize."""
+    f64 = np.float64
+    inf = f64(np.inf)
+
+    def decrease_error(stepsize, value, slope):
+        err = value - value_init - _LS_SLOPE_RTOL * stepsize * slope_init
+        approx = slope - (2 * _LS_SLOPE_RTOL - 1.0) * slope_init
+        approx = _nan_max(approx, value - value_init - _LS_APPROX_DEC_RTOL * abs(value_init))
+        err = _nan_max(_nan_min(approx, err), 0.0)
+        return inf if np.isnan(err) else err
+
+    def curvature_error(slope):
+        err = _nan_max(abs(slope) - _LS_CURV_RTOL * abs(slope_init), 0.0)
+        return inf if np.isnan(err) else err
+
+    st = {"count": 0, "stepsize": f64(0.0), "value": value_init, "slope": slope_init,
+          "decrease_error": inf, "interval_found": False, "done": False, "failed": False,
+          "low": f64(0.0), "value_low": value_init, "slope_low": slope_init,
+          "high": f64(0.0), "value_high": value_init, "slope_high": slope_init,
+          "cubic_ref": f64(0.0), "value_cubic_ref": value_init,
+          "safe_stepsize": f64(0.0), "safe_value": value_init}
+
+    def search_interval():
+        prev = (st["stepsize"], st["value"], st["slope"])
+        new = f64(1.0) if st["count"] == 0 else _LS_INCREASE_FACTOR * prev[0]
+        value, slope = evaluate(new)
+        dec, curv = decrease_error(new, value, slope), curvature_error(slope)
+        error = _nan_max(dec, curv)
+        if dec <= 0.0:
+            st.update(safe_stepsize=new, safe_value=value)
+        set_high_to_new = dec > 0.0 or (value >= prev[1] and st["count"] > 0)
+        set_low_to_new = slope >= 0.0 and not set_high_to_new
+        low, high = ((new, value, slope), prev) if set_low_to_new else (prev, (new, value, slope))
+        done = error <= 0.0
+        st.update(count=st["count"] + 1, stepsize=new, value=value, slope=slope,
+                  decrease_error=dec,
+                  interval_found=set_high_to_new or set_low_to_new or done, done=done,
+                  failed=st["count"] + 1 >= _LS_MAX_STEPS and not done,
+                  low=low[0], value_low=low[1], slope_low=low[2],
+                  high=high[0], value_high=high[1], slope_high=high[2],
+                  cubic_ref=low[0], value_cubic_ref=low[1])
+
+    def zoom():
+        low, value_low, slope_low = st["low"], st["value_low"], st["slope_low"]
+        high, value_high, slope_high = st["high"], st["value_high"], st["slope_high"]
+        delta = abs(high - low)
+        left, right = min(high, low), max(high, low)
+        cubic_chk, quad_chk = 0.2 * delta, 0.1 * delta
+        too_small = delta <= _LS_STEPSIZE_PRECISION
+        cubic = _cubicmin(low, value_low, slope_low, high, value_high, st["cubic_ref"],
+                          st["value_cubic_ref"])
+        quad = _quadmin(low, value_low, slope_low, high, value_high)
+        if left + cubic_chk < cubic < right - cubic_chk:
+            middle = cubic
+        elif left + quad_chk < quad < right - quad_chk:
+            middle = quad
+        else:
+            middle = (low + high) / 2.0
+        value, slope = evaluate(middle)
+        dec, curv = decrease_error(middle, value, slope), curvature_error(slope)
+        if dec <= 0.0 and value < st["safe_value"]:
+            st.update(safe_stepsize=middle, safe_value=value)
+        done = _nan_max(dec, curv) <= 0.0
+        set_high_to_middle = dec > 0.0 or value >= value_low
+        set_high_to_low = slope * (high - low) >= 0.0 and not set_high_to_middle
+        if set_high_to_middle:
+            st.update(high=middle, value_high=value, slope_high=slope)
+        elif set_high_to_low:
+            st.update(high=low, value_high=value_low, slope_high=slope_low)
+        if not set_high_to_middle:
+            st.update(low=middle, value_low=value, slope_low=slope)
+        if set_high_to_middle or set_high_to_low:
+            st.update(cubic_ref=high, value_cubic_ref=value_high)
+        else:
+            st.update(cubic_ref=low, value_cubic_ref=value_low)
+        failed = (st["count"] + 1 >= _LS_MAX_STEPS
+                  or (too_small and st["safe_stepsize"] > 0.0)) and not done
+        st.update(count=st["count"] + 1, stepsize=middle, value=value, slope=slope,
+                  decrease_error=dec, done=done, failed=failed)
+
+    with np.errstate(all="ignore"):
+        while not (st["done"] or st["failed"]):
+            zoom() if st["interval_found"] else search_interval()
+            if st["failed"] and (st["safe_stepsize"] > 0.0 or np.isinf(st["decrease_error"])):
+                st.update(stepsize=st["safe_stepsize"], value=st["safe_value"])
+    return st["stepsize"]
+
+
+def _lbfgs_direction(grad: torch.Tensor, mem: Dict, memory_size: int,
+                     x: torch.Tensor) -> torch.Tensor:
+    """``optax.scale_by_lbfgs(memory_size, scale_init_precond=True)``: the
+    memory updated with this iterate's ``(x, grad)`` differences, then the
+    two-loop recursion ``P_k grad`` on the device (``mem`` is updated in
+    place)."""
+    count = mem["count"]
+    memory_idx, prev_idx = count % memory_size, (count - 1) % memory_size
+    if count > 0:
+        dp, du = x - mem["x"], grad - mem["g"]
+        vdot = torch.dot(du, dp)
+        weight = torch.where(vdot == 0.0, torch.zeros_like(vdot), 1.0 / vdot)
+        den = torch.dot(du, du)
+        scale = torch.where(den > 0.0, vdot / den, torch.ones_like(den))
+    else:
+        dp = du = torch.zeros_like(x)
+        weight = torch.zeros((), dtype=x.dtype, device=x.device)
+        scale = torch.clamp(1.0 / torch.linalg.vector_norm(grad), max=1.0)
+    mem["dp"][prev_idx] = dp
+    mem["du"][prev_idx] = du
+    mem["rho"][prev_idx] = weight
+    indices = [(memory_idx + i) % memory_size for i in range(memory_size)]
+    vec, alphas = grad, {}
+    for idx in reversed(indices):
+        alphas[idx] = mem["rho"][idx] * torch.dot(mem["dp"][idx], vec)
+        vec = vec + (-alphas[idx]) * mem["du"][idx]
+    vec = scale * vec
+    for idx in indices:
+        beta = mem["rho"][idx] * torch.dot(mem["du"][idx], vec)
+        vec = vec + (alphas[idx] - beta) * mem["dp"][idx]
+    mem.update(count=count + 1, x=x, g=grad)
+    return vec
+
+
+def train_using_device_lbfgs(params: Dict, loss_fn: Callable, max_iterations: int,
+                             trainable_mask: Optional[Dict] = None,
+                             monitor: Optional[Monitor] = None, record_step: int = 50,
+                             memory_size: int = 10) -> Dict:
+    """L-BFGS on the parameters' device: ``optax.lbfgs(memory_size)`` as
+    optax 0.2.6 defines it, the JAX package's device trainer.  Each
+    iteration takes the loss and its gradient (frozen leaves' gradients
+    multiplied by zero), the two-loop direction with the scaled-identity
+    start (``min(1, 1 / |g|)`` at the first iteration), then
+    ``scale_by_zoom_linesearch(max_linesearch_steps=20,
+    initial_guess_strategy="one")`` along it, whose evaluations take the
+    unmasked gradient as optax's ``value_fn`` does.  The vectors stay on
+    the device; the line search decides on the host in float64, from one
+    host read of ``(value, slope)`` at the start and one per line-search
+    evaluation (JAX decides inside its ``lax.scan``).  The monitor fires
+    after every ``record_step`` iterations and at the end, labelled by the
+    iterations done, then is flushed.  So each evaluation costs one host
+    read, and with ``record_step=1`` the evaluations between two monitor
+    calls are one plus that iteration's line-search steps."""
+    if max_iterations <= 0:
+        return params
+    x, unravel = _ravel(params)
+    mask_flat = None if trainable_mask is None else \
+        _flat_mask(trainable_mask, params, x).to(x.dtype)
+    mem = {"count": 0, "x": torch.zeros_like(x), "g": torch.zeros_like(x),
+           "dp": torch.zeros((memory_size,) + tuple(x.shape), dtype=x.dtype, device=x.device),
+           "du": torch.zeros((memory_size,) + tuple(x.shape), dtype=x.dtype, device=x.device),
+           "rho": torch.zeros(memory_size, dtype=x.dtype, device=x.device)}
+    chunk = max(1, min(int(record_step), int(max_iterations)))
+
+    def evaluate(point):
+        return _flat_value_and_grad(loss_fn, unravel, point)
+
+    def read_value_and_slope(value, grad, direction):
+        """One host read: the loss and its slope along ``direction``."""
+        pair = torch.stack([value.to(grad.dtype), torch.dot(grad, direction)]).cpu().double()
+        return np.float64(pair[0]), np.float64(pair[1])
+
+    for done in range(1, int(max_iterations) + 1):
+        value, grad = evaluate(x)
+        if mask_flat is not None:
+            grad = grad * mask_flat
+        updates = -1.0 * _lbfgs_direction(grad, mem, memory_size, x)
+        stepsize = _zoom_linesearch(
+            lambda s: read_value_and_slope(*evaluate(x + float(s) * updates), updates),
+            *read_value_and_slope(value, grad, updates))
+        x = x + float(stepsize) * updates
+        if monitor is not None and (done % chunk == 0 or done == max_iterations):
+            monitor(done, unravel(x))
+    if monitor is not None:
+        monitor.flush()
+    return unravel(x)
+
+
+def train_vanilla_using_lbfgs(params: Dict, loss_fn: Callable, max_iterations: int,
+                              trainable_mask: Optional[Dict] = None) -> Dict:
+    """Plain L-BFGS: :func:`train_using_lbfgs_and_update` with no update
+    and no monitor."""
+    return train_using_lbfgs_and_update(params, loss_fn, max_iterations,
+                                        trainable_mask=trainable_mask)
+
+
+def train_vanilla_using_lbfgs_and_standard_ip_update(params: Dict, loss_fn: Callable,
+                                                     clustering_fn: Callable,
+                                                     max_iterations: int,
+                                                     trainable_mask: Optional[Dict] = None
+                                                     ) -> Dict:
+    """L-BFGS that assigns the inducing inputs Z from ``clustering_fn()``
+    (an array or tensor of Z's shape) after every iteration.  Z is excluded
+    from the L-BFGS vector: it is assigned, not optimised.  Re-clustering
+    every step can converge to poor local minima, as the reference warns."""
+
+    def update_fn(p: Dict) -> Dict:
+        z = p["inducing_points"]
+        return {**p, "inducing_points": _like(clustering_fn(), z)}
+
+    mask = _expand_trainable_mask(True, params) if trainable_mask is None \
+        else dict(trainable_mask)
+    mask["inducing_points"] = False
+    return train_using_lbfgs_and_update(params, loss_fn, max_iterations, update_fn=update_fn,
+                                        trainable_mask=mask)
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,9 @@ from cggp_tpu_torch.models.base import CholPosterior
 from cggp_tpu_torch.models.cggp import CGGPPosterior
 from cggp_tpu_torch.models.gpr import GPRPosterior
 from cggp_tpu_torch.models.itergpr import IterGPRPosterior
+from cggp_tpu_torch.models.pathwise import PathwisePosterior
 from cggp_tpu_torch.models.rowcg import RowCGGPPosterior
+from cggp_tpu_torch.models.sgpr import SGPRPosterior
 from cggp_tpu_torch.training.optimize import AdamState
 
 # Serving-cache classes, by the qualified names the JAX package writes and
@@ -51,6 +53,8 @@ _JAX_CLASS_NAMES = {
     IterGPRPosterior: ("cggp_tpu.models.itergpr", "IterGPRPosterior"),
     GPRPosterior: ("cggp_tpu.models.gpr", "GPRPosterior"),
     CholPosterior: ("cggp_tpu.models.base", "CholPosterior"),
+    SGPRPosterior: ("cggp_tpu.models.sgpr", "SGPRPosterior"),
+    PathwisePosterior: ("cggp_tpu.models.pathwise", "PathwisePosterior"),
 }
 _PORT_CLASSES = {name: cls for cls, name in _JAX_CLASS_NAMES.items()}
 _CHECKPOINT_FORMAT = "cggp_tpu_torch checkpoint 1"
@@ -271,8 +275,9 @@ def _decode_pytree(desc, arrays, device: torch.device):
 def save_posterior(dirpath, post) -> None:
     """Write a serving cache (one of the classes of ``_JAX_CLASS_NAMES``:
     :class:`CGGPPosterior`, :class:`RowCGGPPosterior`,
-    :class:`IterGPRPosterior`, :class:`GPRPosterior`, :class:`CholPosterior`;
-    LOVE caches included, their ``lanczos_r`` an array field) to
+    :class:`IterGPRPosterior`, :class:`GPRPosterior`, :class:`CholPosterior`,
+    :class:`SGPRPosterior`, :class:`PathwisePosterior`; LOVE caches
+    included, their ``lanczos_r`` an array field) to
     ``{dirpath}/posterior.{npz,json}``, readable by both packages; dtypes
     are kept exactly."""
     if not (isinstance(post, tuple) and hasattr(post, "_fields")):

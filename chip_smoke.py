@@ -33,6 +33,29 @@ Phases, each printing one JSON line of its own:
               (bitwise equal): means within ``SERVE_ATOL`` of the ``"cg"``
               route's, variances at least the fp64 Cholesky ones less the
               fp32 ``"cg"`` route's gap, at most the kernel variance.
+   ``train_sgpr_lbfgs``  ``SGPR`` (float64, Z the committed selection, held
+              fixed) over all 291,450 training rows: the first ELBO and its
+              gradients against the host CPU's float64 (1e-9), scipy's
+              L-BFGS-B for 20 iterations (the loss never rising between
+              callbacks), the test split through ``predict_in_batches`` on
+              the data-bound cache (RMSE falling), the device L-BFGS for 20
+              iterations (ending at most 1e-3 |scipy's| above scipy's).
+   ``train_lpsvgp`` / ``train_pathwise``  ``LpSVGP`` and
+              ``PathwiseClusterGP`` (S = 8, L = 512), float64, 100 adam(0.01)
+              steps on batches of 2048: the last 10 steps' mean loss below
+              the first 10's.  No kernel runs in these three.
+   ``pathwise_cggp``  ``build_pathwise_posterior(solver="cg")`` on the
+              serving CGGP (S = 8, L = 512) through B2 (one launch), B1
+              under the exact factor (steps + 1 launches) and ``"xla"``: the
+              weights within 2x the fp32 ``"xla"`` route's gap from a float64
+              Cholesky build on the same draws; the 4 x 8192 points through
+              ``pathwise_samples_at`` and ``pathwise_samples_scan`` (bitwise
+              equal); per-call samples against the cache; S = 256 sample
+              moments within 5 Monte-Carlo standard errors at L = 512, 4096,
+              32768 and 262144 (the mean of ClusterGP's at each L; the
+              variance of the sampler's given its frequencies at L = 512,
+              of ClusterGP's at L = 262144; the RFF error between the two
+              reported at each L).
 7. ``setup_train`` / ``reference_train``  the dense training workload: the
               same data and selection, batches of 2048 training points
               (indices from a seeded CPU generator, drawn up front), probes
@@ -173,12 +196,23 @@ Phases, each printing one JSON line of its own:
               ``batch_size="auto"``: means equal the ``"cg"`` cache's, each of
               the first 512 variances at least the CG one less the stop
               rule's allowance ``2 sqrt(threshold) |k| |v|``.
+    ``train_gpr_lbfgs``  ``paper_gpr``'s default: the dense float64 ``GPR``
+              on the first 10,000 training rows, scipy's and the device
+              L-BFGS for 50 iterations each (both below the init loss, the
+              device's at most 1e-3 |scipy's| above scipy's).
+    ``train_itergpr_lbfgs``  ``paper_gpr --iterative -o scipy``: scipy's
+              L-BFGS-B of ``IterGPR`` at N = 131,072 through B3 with the
+              fixed probes for 1 iteration (every MLL finite, the final
+              loss below the init, B3 launches = the steps + 1 of each
+              evaluation's solves), then both trainers for 10 iterations at
+              N = 16,384 (device at most 1e-3 |scipy's| above scipy's).
 16. ``setup_solver_family`` / ``solver_family``  ``bench.py``'s dense CG system
               (M = 32768, 16 right-hand sides) through every route of
               ``ConjugateGradient`` at relative 1e-6 and 1e-4 and through
               ``solve_chunked``, against an fp64 Cholesky solve, timed; the
               bf16 envelope check on three systems (see
-              ``solver_family_phases``).
+              ``solver_family_phases``); B1 alone at R = 16 timed against
+              ``torch.matmul`` (its error from fp64 at most 2x the library's).
 
 Bounds (``bound_parts``): the least time of an fp32-accurate result, the
 smaller of the fp32 FMA time and three TF32 passes on the tensor cores, then
@@ -437,6 +471,38 @@ JAX_ITERGPR_STEP0 = {
                                "kernel/lengthscales": 799.646020440767,
                                "likelihood/variance": 6223.89886133914},
                 "cg_steps": [52, 48], "converged": [True, True]}}
+# The baselines of the paper (SGPR, LpSVGP, PathwiseClusterGP) on the e2e
+# data at the committed selection (M = 989), float64 as the reference runs
+# them: SGPR over the whole training split by L-BFGS (20 iterations of each
+# trainer; the host CPU's float64 first ELBO over SGPR_CPU_CHECK_ROWS rows,
+# None = all), LpSVGP and PathwiseClusterGP by 100 adam(0.01) steps on
+# batches of 2048; the pathwise serving cache of the serving workload's CGGP
+# at S = 8 samples of L = 512 bases.
+SGPR_LBFGS_ITERATIONS = 20
+SGPR_CPU_CHECK_ROWS = None
+BASELINE_STEPS = 100
+BASELINE_SEED = 9
+PATHWISE_SAMPLES = 8
+PATHWISE_BASES = 512
+PATHWISE_SEED = 10
+PATHWISE_CHECK_POINTS = 512
+PATHWISE_MOMENT_SAMPLES = 256
+# The sample moments' sweep in L: the RFF error given theta falls as
+# 1 / sqrt(L); at L = 512 it put ClusterGP's variance 23.9 standard errors
+# from the S = 256 samples' (H100 80GB HBM3, 700 W).
+PATHWISE_MOMENT_BASES = (512, 4096, 32768, 262144)
+# paper_gpr's L-BFGS entry points: the dense GPR on its default 10,000 rows
+# (cggp_tpu/cli/paper_gpr.py), 50 iterations of each trainer; IterGPR at N =
+# 131,072 through B3 for 1 scipy iteration, then the two trainers for 10
+# iterations each at N = 16,384.  Two iterations at N = 131,072 took 342 s on
+# an H100 80GB HBM3 at 700 W (5 evaluations of 34-49 s, and one of 183 s
+# whose trial step ran both solves to the 1000-step cap), which would take
+# the whole run past 1000 s; the first iteration's 2 evaluations take ~74 s.
+GPR_LBFGS_N = 10_000
+GPR_LBFGS_ITERATIONS = 50
+ITERGPR_LBFGS_ITERATIONS = 1
+ITERGPR_LBFGS_SMALL_ITERATIONS = 10
+ITERGPR_LBFGS_BUDGET_S = 300
 _T0 = time.monotonic()
 
 
@@ -2248,9 +2314,654 @@ def itergpr_phases(ctx) -> None:
                   "nvidia_smi": card_line, "wall_s": ph.elapsed()})
             b3.update({"love_itergpr_launches": love_launches["kuu_matvec"]})
             del love, love_mean, love_var
+
+        exact_gp_lbfgs_phases({"device": device, "card_line": card_line, "gram_record": b3,
+                               "data64": (x_np, y_np), "data": (x, y, probes),
+                               "make_itergpr": make_itergpr, "solves": solves,
+                               "steps_of": steps_of, "read_counts": read_counts,
+                               "want_launches": want_launches,
+                               "b3_ms_r9": cases[1 + ITERGPR_PROBES]["kernel_ms"]})
     finally:
         cg_implicit_module._implicit_cg_impl = impl
         cg_implicit_module.matvec_vjp = logdet_module.matvec_vjp = vjp_impl
+
+
+class StepLosses:
+    """A trainer monitor that keeps every ``train/loss`` scalar."""
+
+    def __init__(self):
+        self.losses = []
+
+    def add_scalar(self, name, value, step):
+        if name == "train/loss":
+            self.losses.append(float(value))
+
+    def __call__(self, step, params):
+        pass
+
+    def flush(self):
+        pass
+
+
+class IterationLog:
+    """An L-BFGS monitor that notes how many evaluations came before each of
+    its calls (the evaluations' losses are read after the run)."""
+
+    def __init__(self, evaluations):
+        self.evaluations, self.marks = evaluations, []
+
+    def __call__(self, step, params):
+        self.marks.append(len(self.evaluations))
+
+    def flush(self):
+        pass
+
+    def counts(self, trainer: str) -> dict:
+        """The run's iterations (one monitor call each: scipy's callback, or
+        the device trainer at ``record_step=1``), evaluations and host reads
+        (both trainers read each evaluation once: scipy its loss and
+        gradient, the device trainer its value and slope), and the device
+        trainer's line-search steps per iteration (its evaluations between
+        two monitor calls, less the one at the iterate)."""
+        evaluations = len(self.evaluations)
+        counts = {"iterations": len(self.marks), "evaluations": evaluations,
+                  "host_reads": evaluations}
+        if trainer == "device":
+            counts["linesearch_steps"] = [b - a - 1 for a, b in
+                                          zip([0] + self.marks, self.marks)]
+        return counts
+
+
+def flat_of(params) -> torch.Tensor:
+    """The leaves in sorted-key order as one detached vector (no host read)."""
+    if isinstance(params, dict):
+        return torch.cat([flat_of(params[k]) for k in sorted(params)])
+    return params.detach().reshape(-1)
+
+
+def counted_loss(loss_fn, evaluations):
+    """``loss_fn`` that keeps each evaluation's ``(parameters, loss)``
+    (detached, on the device: no host read) in ``evaluations``."""
+
+    def wrapped(params):
+        value = loss_fn(params)
+        evaluations.append((flat_of(params), value.detach()))
+        return value
+
+    return wrapped
+
+
+def final_loss(loss_fn, evaluations, trained) -> float:
+    """The loss at ``trained``: an evaluation's at the same parameters
+    (bitwise) when there is one, else one more evaluation."""
+    flat = flat_of(trained)
+    for params, value in reversed(evaluations):
+        if params.shape == flat.shape and torch.equal(params, flat):
+            return float(value)
+    with torch.no_grad():
+        return float(loss_fn(trained))
+
+
+def value_and_named_grads(loss_fn, params, names):
+    """``loss_fn(params)`` and its gradients with respect to the leaves
+    named ``names`` (slash-joined), the other leaves held fixed."""
+    live = {k: ({kk: vv.detach().clone() for kk, vv in v.items()} if isinstance(v, dict)
+                else v.detach().clone()) for k, v in params.items()}
+    leaves = []
+    for name in names:
+        node = live
+        *path, last = name.split("/")
+        for part in path:
+            node = node[part]
+        node[last] = node[last].requires_grad_()
+        leaves.append(node[last])
+    value = loss_fn(live)
+    grads = torch.autograd.grad(value, leaves)
+    return value.detach(), {n: g.detach() for n, g in zip(names, grads)}
+
+
+def to_device(tree, device, dtype=None):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype or tree.dtype)
+
+
+def baseline_phases(ctx) -> None:
+    """The baselines of the paper on the e2e data at M = 989 and the
+    pathwise serving cache on the dense serving workload:
+
+    * ``train_sgpr_lbfgs``: ``SGPR`` (Matern32, float64, jitter 1e-6, Z
+      the committed selection, held fixed) over all 291,450 training rows:
+      the first ELBO and its gradients against the port's float64 values
+      on the host CPU (1e-9 relative), ``train_using_lbfgs_and_update``
+      for 20 iterations (the loss never rises between callbacks), the test
+      split served through ``predict_in_batches`` on the data-bound cache
+      (RMSE falls from init), then ``train_using_device_lbfgs`` for 20
+      iterations from the same init (its loss <= scipy's + 1e-3 |scipy's|).
+    * ``train_lpsvgp`` / ``train_pathwise``: ``LpSVGP`` and
+      ``PathwiseClusterGP`` (S = 8, L = 512, its generator on the card),
+      float64, 100 adam(0.01) steps on batches of 2048 through
+      ``train_using_adam_and_update``: the mean loss of the last 10 steps
+      below the first 10's.  No kernel runs in these three phases.
+    * ``pathwise_cggp``: ``build_pathwise_posterior(solver="cg")`` on the
+      serving workload's fp32 ``CGGP`` (S = 8, L = 512, one generator
+      seed) through B2 (``pallas_resident``, no preconditioner, absolute
+      1e-8), through B1 (``pallas`` under the exact factor, relative 1e-5)
+      and through ``"xla"`` in each configuration, against ``solver="chol"``
+      in float64 on the same draws: each kernel route's weights within 2x
+      the fp32 ``"xla"`` route's gap; one B2 launch, B1 launches = steps +
+      1.  The 4 x 8192 serving points through ``pathwise_samples_at`` (one
+      call a batch) and ``pathwise_samples_scan``, bitwise equal; over 512
+      points ``PathwiseClusterGP.pathwise_samples`` with the same seed
+      against the cached ``"chol"`` samples (``SERVE_ATOL``), and S = 256
+      cached samples at each L of ``PATHWISE_MOMENT_BASES`` within 5
+      Monte-Carlo standard errors: their mean of ``ClusterGP``'s float64
+      Cholesky predictive at every L, their variance of the sampler's own
+      given its frequencies at L = 512 and of ``ClusterGP``'s at the largest
+      L (the RFF error between the two, reported at each L, falls as
+      1 / sqrt(L)).
+
+    ``ctx`` carries the card, its ``nvidia-smi`` line, the e2e split
+    (numpy), the committed selection, the fp32 serving parameters, the
+    serving points and the dense model factory, and the ``kernels`` record
+    (which gains B1's and B2's ``pathwise_*`` counts)."""
+    import cggp_tpu_torch.ops.cg as cg_module
+    import cggp_tpu_torch.ops.rff as rff_module
+    from cggp_tpu_torch.models import (CGGP, ClusterGP, LpSVGP, PathwiseClusterGP, SGPR,
+                                       build_pathwise_posterior, pathwise_samples_at,
+                                       pathwise_samples_scan)
+    from cggp_tpu_torch.ops.cg import ConjugateGradient
+    from cggp_tpu_torch.ops.kernels import Matern32
+    from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve
+    from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec
+    from cggp_tpu_torch.training.optimize import (predict_in_batches, train_using_adam_and_update,
+                                                  train_using_device_lbfgs,
+                                                  train_using_lbfgs_and_update)
+
+    device, card_line, kernels = ctx["device"], ctx["card_line"], ctx["kernels"]
+    x_train, y_train, x_test, y_test = ctx["data"]
+    iv, u, counts = ctx["selection"]
+    n_train = x_train.shape[0]
+    x64 = torch.as_tensor(x_train, dtype=torch.float64, device=device)
+    y64 = torch.as_tensor(y_train, dtype=torch.float64, device=device)
+    xt64 = torch.as_tensor(x_test, dtype=torch.float64, device=device)
+    yt64 = torch.as_tensor(y_test, dtype=torch.float64, device=device)
+
+    # -- train_sgpr_lbfgs: the Titsias baseline at full width, float64 -------
+    with Phase("train_sgpr_lbfgs", 300) as ph:
+        model = SGPR(kernel=Matern32())
+        params0 = model.init_params(iv, dtype=torch.float64, device=device)
+        mask = {"kernel": True, "likelihood": True, "inducing_points": False}
+        names = ("kernel/variance", "kernel/lengthscales", "likelihood/variance")
+        torch.cuda.reset_peak_memory_stats()
+        loss_card, grads_card = value_and_named_grads(
+            lambda p: model.training_loss(p, (x64, y64)), params0, names)
+        ph.wait()
+        rows = SGPR_CPU_CHECK_ROWS or n_train
+        if rows != n_train:
+            loss_card, grads_card = value_and_named_grads(
+                lambda p: model.training_loss(p, (x64[:rows], y64[:rows])), params0, names)
+        t0 = time.monotonic()
+        loss_cpu, grads_cpu = value_and_named_grads(
+            lambda p: model.training_loss(p, (torch.as_tensor(x_train[:rows]),
+                                              torch.as_tensor(y_train[:rows]))),
+            to_device(params0, "cpu"), names)
+        cpu_s = time.monotonic() - t0
+        vs_cpu = {"loss": abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu)),
+                  **{n: float(torch.linalg.vector_norm(grads_card[n].cpu() - grads_cpu[n])
+                              / torch.linalg.vector_norm(grads_cpu[n])) for n in names}}
+        require(all(v <= 1e-9 for v in vs_cpu.values()),
+                f"train_sgpr_lbfgs: the card's first ELBO and gradients {vs_cpu} from the "
+                "host CPU's float64")
+
+        def rmse(p):
+            mean, _ = predict_in_batches(model, p, xt64, batch_size=R_BATCH, train_data=(x64, y64))
+            return float(torch.sqrt(torch.mean(torch.square(mean - yt64))))
+
+        rmse_before = rmse(params0)
+        runs = {}
+        for trainer in ("scipy", "device"):
+            evaluations = []
+            loss_fn = counted_loss(lambda p: model.training_loss(p, (x64, y64)), evaluations)
+            log = IterationLog(evaluations)
+            ph.wait()
+            t0 = time.monotonic()
+            if trainer == "scipy":
+                trained = train_using_lbfgs_and_update(params0, loss_fn, SGPR_LBFGS_ITERATIONS,
+                                                       trainable_mask=mask, monitor=log)
+            else:
+                trained = train_using_device_lbfgs(params0, loss_fn, SGPR_LBFGS_ITERATIONS,
+                                                   trainable_mask=mask, monitor=log,
+                                                   record_step=1)
+            ph.wait()
+            wall = time.monotonic() - t0
+            stats = log.counts(trainer)
+            losses = torch.stack([v for _, v in evaluations]).tolist()
+            at_callbacks = [losses[k - 1] for k in log.marks]
+            require(all(math.isfinite(v) for v in losses), f"train_sgpr_lbfgs {trainer}: "
+                                                            "a non-finite loss")
+            final = final_loss(lambda p: model.training_loss(p, (x64, y64)), evaluations,
+                               trained)
+            runs[trainer] = {"trained": trained, "final_loss": final,
+                             "iterations": stats["iterations"],
+                             "evaluations": stats["evaluations"],
+                             "host_reads": stats["host_reads"], "wall_s": wall,
+                             "s_per_evaluation": wall / stats["evaluations"],
+                             "evaluations_per_iteration":
+                                 stats["evaluations"] / stats["iterations"],
+                             "host_reads_per_iteration": stats["host_reads"] / stats["iterations"],
+                             "loss_at_callbacks": at_callbacks,
+                             **({"linesearch_steps": stats["linesearch_steps"]}
+                                if trainer == "device" else {})}
+        scipy_run, device_run = runs["scipy"], runs["device"]
+        require(all(b <= a for a, b in zip(scipy_run["loss_at_callbacks"],
+                                           scipy_run["loss_at_callbacks"][1:])),
+                f"train_sgpr_lbfgs: the loss rose between callbacks "
+                f"{scipy_run['loss_at_callbacks']}")
+        require(device_run["final_loss"] <= scipy_run["final_loss"]
+                + 1e-3 * abs(scipy_run["final_loss"]),
+                f"train_sgpr_lbfgs: device L-BFGS ended at {device_run['final_loss']}, scipy "
+                f"at {scipy_run['final_loss']}")
+        ph.wait()
+        t0 = time.monotonic()
+        rmse_after = rmse(scipy_run["trained"])
+        serve_s = time.monotonic() - t0
+        require(rmse_after < rmse_before,
+                f"train_sgpr_lbfgs: test RMSE {rmse_after} after, {rmse_before} before")
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        emit({"phase": "train_sgpr_lbfgs", "n": n_train, "m": int(iv.shape[0]),
+              "dtype": "float64", "cpu_check_rows": rows, "cpu_reference_s": cpu_s,
+              "first_loss": float(loss_card), "first_step_gap_vs_cpu_fp64": vs_cpu,
+              **{f"{t}_{k}": v for t, r in runs.items() for k, v in r.items()
+                 if k != "trained"},
+              "rmse_before": rmse_before, "rmse_after": rmse_after,
+              "serve_test_points": int(xt64.shape[0]), "serve_s": serve_s,
+              "serve_points_per_s": xt64.shape[0] / serve_s, "peak_mb": peak_mb,
+              "tolerance": "first ELBO and gradients within 1e-9 of the host CPU's float64; "
+                           "scipy's loss never rises between callbacks; device final loss <= "
+                           "scipy's + 1e-3 |scipy's|; test RMSE below its init value",
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        del runs, scipy_run, device_run
+    torch.cuda.empty_cache()
+
+    # -- train_lpsvgp / train_pathwise: 100 minibatch adam steps each ---------
+    for name in ("train_lpsvgp", "train_pathwise"):
+        with Phase(name, 120) as ph:
+            if name == "train_lpsvgp":
+                model = LpSVGP(kernel=Matern32(), num_data=n_train)
+                params = model.init_params(iv, dtype=torch.float64, device=device)
+            else:
+                model = PathwiseClusterGP(kernel=Matern32(), num_data=n_train,
+                                          num_bases=PATHWISE_BASES, num_samples=PATHWISE_SAMPLES)
+                params = model.init_params(iv, pseudo_u=u, cluster_counts=counts,
+                                           dtype=torch.float64, device=device)
+            log = StepLosses()
+            key = torch.Generator(device=device).manual_seed(BASELINE_SEED)
+            ph.wait()
+            t0 = time.monotonic()
+            trained = train_using_adam_and_update(
+                params, model.training_loss, (x64, y64), BASELINE_STEPS, TRAIN_BATCH, TRAIN_LR,
+                key, trainable_mask=model.trainable_mask(params), monitor=log)
+            ph.wait()
+            wall = time.monotonic() - t0
+            losses = log.losses
+            require(len(losses) == BASELINE_STEPS and all(math.isfinite(v) for v in losses),
+                    f"{name}: {len(losses)} losses logged, finite {np.isfinite(losses).all()}")
+            require(all(bool(torch.isfinite(v).all()) for v in
+                        (trained["kernel"]["lengthscales"], trained["likelihood"]["variance"])),
+                    f"{name}: non-finite parameters")
+            first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+            require(last < first, f"{name}: mean loss of the last 10 steps {last}, first {first}")
+            emit({"phase": name, "n": n_train, "m": int(iv.shape[0]), "dtype": "float64",
+                  "steps": BASELINE_STEPS, "batch": TRAIN_BATCH, "lr": TRAIN_LR,
+                  **({"num_samples": PATHWISE_SAMPLES, "num_bases": PATHWISE_BASES}
+                     if name == "train_pathwise" else {}),
+                  "loss_first_10_mean": first, "loss_last_10_mean": last,
+                  "steps_per_s": BASELINE_STEPS / wall, "wall_train_s": wall,
+                  "kernels": "none: plain torch (Cholesky, triangular solves, RFF features)",
+                  "tolerance": "the last 10 steps' mean loss below the first 10's",
+                  "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+
+    # -- pathwise_cggp: the pathwise serving cache through each route --------
+    with Phase("pathwise_cggp", 150) as ph:
+        params, xq = ctx["params"], ctx["xq"]
+        params64 = to_device(params, device, torch.float64)
+
+        def cggp(impl, config):
+            if config == "chol":
+                cg = ConjugateGradient(TRAIN_CHOL_THRESHOLD, relative_threshold=True,
+                                       matvec_impl=impl)
+            else:
+                cg = ConjugateGradient(CG_THRESHOLD, matvec_impl=impl)
+            return CGGP(kernel=Matern32(), num_data=n_train, conjugate_gradient=cg,
+                        precondition="chol" if config == "chol" else None)
+
+        def gen():
+            return torch.Generator(device=device).manual_seed(PATHWISE_SEED)
+
+        # Record the fp32 draws to replay them in float64: theta (its own
+        # normals inside) and, by shape, w [S, 2L] and eps [S, M, 1].
+        drawn = {"theta": None, "normal": {}}
+        theta_fn, normal_fn = rff_module.basis_theta_parameter, rff_module.standard_normal
+
+        def recording_theta(*args, **kwargs):
+            drawn["theta"] = theta_fn(*args, **kwargs)
+            return drawn["theta"]
+
+        def recording_normal(generator, shape, dtype, device_):
+            drawn["normal"][tuple(shape)] = normal_fn(generator, shape, dtype, device_)
+            return drawn["normal"][tuple(shape)]
+
+        m = int(params["inducing_points"].shape[0])
+        draw_shapes = ((PATHWISE_SAMPLES, 2 * PATHWISE_BASES), (PATHWISE_SAMPLES, m, 1))
+        builds = {}
+        for route, impl, config in (("b2", "pallas_resident", "plain"), ("xla_plain", "xla", "plain"),
+                                    ("b1", "pallas", "chol"), ("xla_chol", "xla", "chol")):
+            model = cggp(impl, config)
+            solves, undo = record_dense_solves(cg_module, operands=False)
+            rff_module.basis_theta_parameter = recording_theta
+            rff_module.standard_normal = recording_normal
+            drawn["normal"] = {}
+            try:
+                ph.wait()
+                pallas_cg_solve.launches = pallas_matvec.launches = 0
+                t0 = time.monotonic()
+                post = build_pathwise_posterior(model, params, gen(), num_bases=PATHWISE_BASES,
+                                                num_samples=PATHWISE_SAMPLES, solver="cg")
+                ph.wait()
+                build_ms = (time.monotonic() - t0) * 1e3
+                launches = {"pallas_cg_solve": pallas_cg_solve.launches,
+                            "pallas_matvec": pallas_matvec.launches}
+            finally:
+                undo()
+                rff_module.basis_theta_parameter, rff_module.standard_normal = theta_fn, normal_fn
+            steps = [int(s["stats"].steps) for s in solves]
+            require(len(steps) == 1 and all(bool(s["stats"].converged) for s in solves),
+                    f"pathwise_cggp {route}: solves {steps}")
+            want = {"pallas_cg_solve": 1 if impl == "pallas_resident" else 0,
+                    "pallas_matvec": steps[0] + 1 if impl == "pallas" else 0}
+            require(launches == want, f"pathwise_cggp {route}: launches {launches}, want {want}")
+            require(all(shape in drawn["normal"] for shape in draw_shapes),
+                    f"pathwise_cggp {route}: draws of shapes {sorted(drawn['normal'])}")
+            builds[route] = {"post": post, "build_ms": build_ms, "launches": launches,
+                             "cg_steps": steps[0],
+                             "draws": [drawn["theta"]] + [drawn["normal"][s] for s in draw_shapes]}
+        for route in builds:
+            require(all(torch.equal(a, b) for a, b in zip(builds[route]["draws"],
+                                                          builds["xla_plain"]["draws"])),
+                    f"pathwise_cggp {route}: other draws than the xla route's")
+        # The float64 yardstick: solver="chol" on the same draws, widened.
+        theta_drawn, *normals_drawn = builds["xla_plain"]["draws"]
+        replay = {shape: t.double() for shape, t in zip(draw_shapes, normals_drawn)}
+        rff_module.basis_theta_parameter = lambda *args, **kwargs: theta_drawn.double()
+        rff_module.standard_normal = lambda generator, shape, dtype, device_: replay[tuple(shape)]
+        try:
+            chol64 = build_pathwise_posterior(cggp("xla", "plain"), params64, gen(),
+                                              num_bases=PATHWISE_BASES,
+                                              num_samples=PATHWISE_SAMPLES, solver="chol")
+        finally:
+            rff_module.basis_theta_parameter, rff_module.standard_normal = theta_fn, normal_fn
+        gaps = {route: float((b["post"].weights.double() - chol64.weights).abs().max())
+                for route, b in builds.items()}
+        for route, ref in (("b2", "xla_plain"), ("b1", "xla_chol")):
+            require(gaps[route] <= 2.0 * gaps[ref],
+                    f"pathwise_cggp: {route} weights {gaps[route]} from fp64, {ref} {gaps[ref]}")
+        # Serving: the 4 x 8192 points, one call a batch and the scan.
+        model = cggp("pallas_resident", "plain")
+        post = builds["b2"]["post"]
+        ph.wait()
+        t0 = time.monotonic()
+        per_batch = torch.cat([pathwise_samples_at(model, post, xq[i:i + R_BATCH])
+                               for i in range(0, xq.shape[0], R_BATCH)], dim=1)
+        ph.wait()
+        t1 = time.monotonic()
+        swept = pathwise_samples_scan(model, post, xq, batch_size=R_BATCH)
+        ph.wait()
+        t2 = time.monotonic()
+        require(per_batch.shape == (PATHWISE_SAMPLES, xq.shape[0], 1)
+                and bool(torch.isfinite(per_batch).all()), "pathwise_cggp: samples")
+        require(torch.equal(per_batch, swept), "pathwise_cggp: the scan differs from the "
+                                               "per-batch evaluation")
+        # Per call against the cache ("chol", fp32), one seed.
+        pts = xq[:PATHWISE_CHECK_POINTS]
+        per_call_model = PathwiseClusterGP(kernel=Matern32(), num_data=n_train,
+                                           num_bases=PATHWISE_BASES, num_samples=PATHWISE_SAMPLES)
+        per_call = per_call_model.pathwise_samples(params, pts, gen())
+        cached = pathwise_samples_at(model, build_pathwise_posterior(
+            model, params, gen(), num_bases=PATHWISE_BASES, num_samples=PATHWISE_SAMPLES,
+            solver="chol"), pts)
+        call_gap = float((per_call - cached).abs().max())
+        require(call_gap <= SERVE_ATOL, f"pathwise_cggp: per-call samples {call_gap} from the "
+                                        "cached ones")
+        # Moments of S = 256 cached samples, float64, at each L of
+        # PATHWISE_MOMENT_BASES: the mean against ClusterGP's Cholesky
+        # predictive (the sampler's exact mean at every L); the variance
+        # against ClusterGP's and against the sampler's own given its
+        # frequencies (the RFF prior through the same correction), its exact
+        # Monte-Carlo target at that L.  The two variances differ by the
+        # RFF error given theta, which falls as 1 / sqrt(L): gated against
+        # the sampler's own at L = 512 and against ClusterGP's at the
+        # largest L (PERF.md §6, the sweep).
+        mu, var = ClusterGP(kernel=Matern32(), num_data=n_train).predict_f(params64, pts.double())
+        mu, var = mu[:, 0], var[:, 0]
+        kp64, z64 = params64["kernel"], params64["inducing_points"]
+        lam64 = model.diag_variance(params64)[:, 0]
+        chol = torch.linalg.cholesky(model.kernel.K(kp64, z64) + torch.diag(lam64))
+        g = torch.cholesky_solve(model.kernel.K(kp64, z64, pts.double()), chol)  # [M, P]
+        noise_var = torch.sum(g ** 2 * lam64[:, None], dim=0)
+        sweep = {}
+        for bases in PATHWISE_MOMENT_BASES:
+            post_s = build_pathwise_posterior(model, params, gen(), num_bases=bases,
+                                              num_samples=PATHWISE_MOMENT_SAMPLES, solver="chol")
+            many = pathwise_samples_at(model, post_s, pts)[..., 0].double()
+            theta64, scale64 = post_s.theta.double(), post_s.basis_scale.double()
+            del post_s
+            resid = rff_module.basis_vectors(pts.double(), theta64)
+            resid -= g.T @ rff_module.basis_vectors(z64, theta64)
+            var_given_theta = scale64 ** 2 * torch.sum(resid ** 2, dim=-1) + noise_var
+            del resid
+            s_mean, s_var = many.mean(dim=0), many.var(dim=0)
+            se_mean = torch.sqrt(s_var / PATHWISE_MOMENT_SAMPLES)
+            se_var = s_var * math.sqrt(2.0 / (PATHWISE_MOMENT_SAMPLES - 1))
+            sweep[bases] = {
+                "mean_max_standard_errors": float(((s_mean - mu).abs() / se_mean).max()),
+                "var_given_theta_max_standard_errors":
+                    float(((s_var - var_given_theta).abs() / se_var).max()),
+                "var_vs_clustergp_max_standard_errors": float(((s_var - var).abs() / se_var).max()),
+                "rff_var_bias_max_abs": float((var_given_theta - var).abs().max()),
+                "rff_var_bias_max_standard_errors":
+                    float(((var_given_theta - var).abs() / se_var).max())}
+            del many
+            torch.cuda.empty_cache()
+        at_512, at_most = sweep[PATHWISE_BASES], sweep[max(PATHWISE_MOMENT_BASES)]
+        require(all(r["mean_max_standard_errors"] <= 5.0 for r in sweep.values())
+                and at_512["var_given_theta_max_standard_errors"] <= 5.0
+                and at_most["var_vs_clustergp_max_standard_errors"] <= 5.0,
+                f"pathwise_cggp: sample moments in standard errors by L: {sweep}")
+        kernels["pallas_cg_solve"]["pathwise_launches"] = builds["b2"]["launches"][
+            "pallas_cg_solve"]
+        kernels["pallas_matvec"]["pathwise_launches"] = builds["b1"]["launches"]["pallas_matvec"]
+        sample_points = PATHWISE_SAMPLES * xq.shape[0]
+        emit({"phase": "pathwise_cggp", "m": int(post.weights.shape[1]),
+              "num_samples": PATHWISE_SAMPLES, "num_bases": PATHWISE_BASES,
+              "routes": {r: {k: v for k, v in b.items() if k not in ("post", "draws")}
+                         for r, b in builds.items()},
+              "weights_gap_vs_fp64_chol": gaps,
+              "points": int(xq.shape[0]),
+              "per_batch_sample_points_per_s": sample_points / (t1 - t0),
+              "scan_sample_points_per_s": sample_points / (t2 - t1),
+              "per_call_vs_cache_max_abs": call_gap,
+              "moments_points": PATHWISE_CHECK_POINTS, "moment_samples": PATHWISE_MOMENT_SAMPLES,
+              "moments_by_num_bases": {str(k): v for k, v in sweep.items()},
+              "clustergp_var_range": [float(var.min()), float(var.max())],
+              "tolerance": "each kernel route's weights within 2x the fp32 xla route's gap from "
+                           "fp64 chol (same config); launches: one B2, B1 = steps + 1; scan == "
+                           f"per-batch bitwise; per call vs cache <= {SERVE_ATOL}; S = 256 "
+                           "moments within 5 Monte-Carlo standard errors: the mean of "
+                           "ClusterGP's at every L, the variance of the sampler's given its "
+                           f"frequencies at L = {PATHWISE_BASES} and of ClusterGP's at L = "
+                           f"{max(PATHWISE_MOMENT_BASES)}",
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+    del x64, y64, xt64, yt64
+    torch.cuda.empty_cache()
+
+
+def exact_gp_lbfgs_phases(ctx) -> None:
+    """``paper_gpr``'s L-BFGS entry points on the exact-GP data (called
+    inside :func:`itergpr_phases`, whose solve recorder is on):
+
+    * ``train_gpr_lbfgs``: the dense float64 ``GPR`` (Matern32) on the
+      first 10,000 training rows (``paper_gpr``'s default size),
+      ``train_using_lbfgs_and_update`` and ``train_using_device_lbfgs``
+      for 50 iterations each: both end below the init loss, the device
+      run's loss <= scipy's + 1e-3 |scipy's|.
+    * ``train_itergpr_lbfgs``: ``paper_gpr --iterative -o scipy`` at N =
+      131,072 through B3 (``train_itergpr_pallas``' model and its 8 fixed
+      probes) for ``ITERGPR_LBFGS_ITERATIONS`` (1) iteration: every
+      evaluation's MLL finite, the final loss below the init loss, each
+      evaluation's B3 launches = the steps + 1 of its two solves; then the
+      device trainer against scipy for 10 iterations each at N = 16,384
+      through B3 (device <= scipy + 1e-3 |scipy|)."""
+    from cggp_tpu_torch.models import GPR
+    from cggp_tpu_torch.ops.kernels import Matern32
+    from cggp_tpu_torch.training.optimize import (train_using_device_lbfgs,
+                                                  train_using_lbfgs_and_update)
+
+    device, card_line, b3 = ctx["device"], ctx["card_line"], ctx["gram_record"]
+    x_np, y_np = ctx["data64"]
+    x, y, probes = ctx["data"]
+    make_itergpr, solves, steps_of = ctx["make_itergpr"], ctx["solves"], ctx["steps_of"]
+    read_counts, want_launches = ctx["read_counts"], ctx["want_launches"]
+
+    def lbfgs_runs(loss_fn, params0, iterations, trainers, ph):
+        """Each trainer from ``params0``: its stats, wall time, the losses
+        of its evaluations and at its callbacks, and the final loss."""
+        runs = {}
+        for trainer in trainers:
+            evaluations = []
+            log = IterationLog(evaluations)
+            counted = counted_loss(loss_fn, evaluations)
+            ph.wait()
+            t0 = time.monotonic()
+            if trainer == "scipy":
+                trained = train_using_lbfgs_and_update(params0, counted, iterations, monitor=log)
+            else:
+                trained = train_using_device_lbfgs(params0, counted, iterations, monitor=log,
+                                                   record_step=1)
+            ph.wait()
+            wall = time.monotonic() - t0
+            stats = log.counts(trainer)
+            losses = torch.stack([v for _, v in evaluations]).double().tolist()
+            final = final_loss(loss_fn, evaluations, trained)
+            runs[trainer] = {"final_loss": final, "iterations": stats["iterations"],
+                             "evaluations": stats["evaluations"],
+                             "host_reads": stats["host_reads"], "wall_s": wall,
+                             "s_per_iteration": wall / stats["iterations"],
+                             "s_per_evaluation": wall / stats["evaluations"],
+                             "losses": losses,
+                             "loss_at_callbacks": [losses[k - 1] for k in log.marks],
+                             **({"linesearch_steps": stats["linesearch_steps"]}
+                                if trainer == "device" else {})}
+        return runs
+
+    # -- train_gpr_lbfgs: the dense GPR on paper_gpr's 10,000 rows, float64 ---
+    with Phase("train_gpr_lbfgs", 150) as ph:
+        xg = torch.as_tensor(x_np[:GPR_LBFGS_N], dtype=torch.float64, device=device)
+        yg = torch.as_tensor(y_np[:GPR_LBFGS_N], dtype=torch.float64, device=device)
+        gpr = GPR(kernel=Matern32())
+        params0 = gpr.init_params(3, dtype=torch.float64, device=device)
+
+        def gpr_loss(p):
+            return gpr.training_loss(p, (xg, yg))
+
+        init = float(gpr_loss(params0))
+        runs = lbfgs_runs(gpr_loss, params0, GPR_LBFGS_ITERATIONS, ("scipy", "device"), ph)
+        for trainer, run in runs.items():
+            require(run["final_loss"] < init,
+                    f"train_gpr_lbfgs {trainer}: final loss {run['final_loss']}, init {init}")
+        scipy_loss, device_loss = runs["scipy"]["final_loss"], runs["device"]["final_loss"]
+        require(device_loss <= scipy_loss + 1e-3 * abs(scipy_loss),
+                f"train_gpr_lbfgs: device L-BFGS ended at {device_loss}, scipy at {scipy_loss}")
+        emit({"phase": "train_gpr_lbfgs", "n": GPR_LBFGS_N, "dtype": "float64",
+              "init_loss": init,
+              **{f"{t}_{k}": v for t, r in runs.items() for k, v in r.items()
+                 if k not in ("losses", "loss_at_callbacks")},
+              "tolerance": "both below the init loss; device <= scipy + 1e-3 |scipy|",
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        del xg, yg
+
+    # -- train_itergpr_lbfgs: paper_gpr --iterative -o scipy at N = 131,072 ---
+    with Phase("train_itergpr_lbfgs", ITERGPR_LBFGS_BUDGET_S) as ph:
+        model = make_itergpr(True)
+        params0 = model.init_params(3, dtype=torch.float32, device=device)
+        marks = []  # (launches, solves, time) at each evaluation's start
+
+        def itergpr_loss(p):
+            ph.wait()  # the trainer reads the last evaluation already: no extra stall
+            marks.append((read_counts(), len(solves), time.monotonic()))
+            if len(marks) > 1:
+                print(f"chip_smoke: train_itergpr_lbfgs evaluation {len(marks) - 1} took "
+                      f"{marks[-1][2] - marks[-2][2]:.1f} s", file=sys.stderr, flush=True)
+            return model.training_loss(p, (x, y), probes=probes)
+
+        solves.clear()
+        torch.cuda.reset_peak_memory_stats()
+        runs = lbfgs_runs(itergpr_loss, params0, ITERGPR_LBFGS_ITERATIONS, ("scipy",), ph)
+        run = runs["scipy"]
+        evaluations = run["evaluations"]
+        ph.wait()
+        marks.append((read_counts(), len(solves), time.monotonic()))
+        per_eval = []
+        for i in range(len(marks) - 1):  # the trainer's evaluations (and any final one)
+            (a, sa, ta), (b, sb, tb) = marks[i], marks[i + 1]
+            records = solves[sa:sb]
+            launches = {k: b[k] - a[k] for k in b}
+            want_n = 2 if i < evaluations else 1  # a final loss runs no backward solve
+            require(len(records) == want_n and launches == want_launches(True, records),
+                    f"train_itergpr_lbfgs: evaluation {i} launches {launches}, solves "
+                    f"{steps_of(records)}")
+            per_eval.append({"cg_steps": [k for k, _ in steps_of(records)],
+                             "converged": [c for _, c in steps_of(records)],
+                             "b3_launches": launches["kuu_matvec"], "s": tb - ta})
+        losses = run["losses"]
+        require(all(math.isfinite(v) for v in losses), f"train_itergpr_lbfgs: MLL {losses}")
+        require(run["final_loss"] < losses[0],
+                f"train_itergpr_lbfgs: final loss {run['final_loss']}, init {losses[0]}")
+        train_launches = sum(e["b3_launches"] for e in per_eval[:evaluations])
+        b3_ms = ctx["b3_ms_r9"]
+        itergpr_record = {
+            "n": ITERGPR_N, "iterations": run["iterations"], "evaluations": evaluations,
+            "linesearch_host_reads": run["host_reads"], "mll": [-v for v in losses],
+            "final_mll": -run["final_loss"], "s_per_evaluation": run["s_per_evaluation"],
+            "b3_launches": train_launches, "per_evaluation": per_eval[:evaluations],
+            "b3_share_estimate": train_launches * b3_ms / 1e3
+            / sum(e["s"] for e in per_eval[:evaluations]),
+            "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+        # Device against scipy at N = 16,384 (check_itergpr_small's size).
+        small = ITERGPR_SMALL_N
+        xs, ys, probes_s = x[:small], y[:small], probes[:, :small]
+
+        def small_loss(p):
+            return model.training_loss(p, (xs, ys), probes=probes_s)
+
+        small_runs = lbfgs_runs(small_loss, params0, ITERGPR_LBFGS_SMALL_ITERATIONS,
+                                ("scipy", "device"), ph)
+        s_scipy, s_device = small_runs["scipy"]["final_loss"], small_runs["device"]["final_loss"]
+        require(all(math.isfinite(v) for r in small_runs.values() for v in r["losses"]),
+                "train_itergpr_lbfgs: a non-finite loss at N = 16,384")
+        require(s_device <= s_scipy + 1e-3 * abs(s_scipy),
+                f"train_itergpr_lbfgs: N = {small}: device L-BFGS ended at {s_device}, scipy "
+                f"at {s_scipy}")
+        emit({"phase": "train_itergpr_lbfgs", **itergpr_record,
+              "small_n": small,
+              **{f"small_{t}_{k}": v for t, r in small_runs.items() for k, v in r.items()
+                 if k not in ("losses", "loss_at_callbacks")},
+              "b3_ms_at_r9": b3_ms,
+              "tolerance": "every MLL finite; the final loss below the init loss; B3 "
+                           "launches = the steps + 1 of each evaluation's solves; N = 16,384: "
+                           "device <= scipy + 1e-3 |scipy|",
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        b3.update({"lbfgs_launches": train_launches, "lbfgs_evaluations": evaluations})
 
 
 def serve_love_dense(ctx) -> None:
@@ -2433,8 +3144,9 @@ def solver_family_phases(ctx) -> dict:
     finite and its ``converged`` True exactly where the true residual meets
     the rule; B1 launches = steps + 1 on its routes.  ``check_bf16_envelope``
     keeps ``bf16_ir`` here and falls back to ``"xla_high"`` with a warning on
-    the cover-tree training system (M = 989, Lambda ~ 2e-4).  Returns the
-    B1 launches."""
+    the cover-tree training system (M = 989, Lambda ~ 2e-4).  B1 alone at R
+    = 16 (one step's product) is timed in turns with ``torch.matmul``.
+    Returns the B1 launches and those times."""
     import warnings
 
     from cggp_tpu_torch.ops.cg import ConjugateGradient
@@ -2515,6 +3227,27 @@ def solver_family_phases(ctx) -> dict:
                                 "ms_per_solve": ms, "ms_per_step": ms / max(steps, 1),
                                 "times_s": times, "b1_launches": launches})
                 del sol, sol64
+        # B1 alone at this shape (one CG step's product, [16, M] x [M, M]),
+        # against torch.matmul and fp64, timed in turns.
+        b1_got, b1_lib = pallas_matvec(rhs, a), torch.matmul(rhs, a)
+        b1_exact = rhs.double() @ a64
+        b1_err = float((b1_got.double() - b1_exact).abs().max())
+        lib_err = float((b1_lib.double() - b1_exact).abs().max())
+        del b1_exact
+        require(b1_err <= 2.0 * lib_err,
+                f"solver_family: B1 at R = {SOLVER_FAMILY_RHS} {b1_err} from fp64, "
+                f"torch.matmul {lib_err}")
+        b1_times = timed_in_turns(ph, {"kernel": lambda: pallas_matvec(rhs, a),
+                                       "library": lambda: torch.matmul(rhs, a)},
+                                  ["library", "kernel", "kernel", "library"], reps=10)
+        b1_bound, b1_bound_by, b1_bound_what, _ = bound_parts(
+            4.0 * (2 * SOLVER_FAMILY_RHS * m + m * m), 2.0 * SOLVER_FAMILY_RHS * m * m,
+            2.0 * SOLVER_FAMILY_RHS * m * m)
+        b1_alone = {"rows": SOLVER_FAMILY_RHS, "m": m,
+                    "kernel_ms": float(np.mean(b1_times["kernel"])),
+                    "library_ms": float(np.mean(b1_times["library"])), "turns_ms": b1_times,
+                    "bound_ms": b1_bound, "bound_by": b1_bound_by, "bound_detail": b1_bound_what,
+                    "max_abs_err_vs_fp64": b1_err, "library_max_abs_err_vs_fp64": lib_err}
         # solve_chunked on the plain route.
         cg = ConjugateGradient(1e-6, relative_threshold=True, max_iterations=SOLVER_FAMILY_CAP)
         t0 = time.monotonic()
@@ -2572,15 +3305,19 @@ def solver_family_phases(ctx) -> dict:
               "envelope": {**verdicts, "warning": warned[0] if warned else None,
                            "jax_cpu": JAX_ENVELOPE,
                            "training_system_rel_1e-5": training_bf16},
-              "b1_launches": b1_launches,
+              "b1_launches": b1_launches, "b1_alone": b1_alone,
               "tolerance": "every route but xla_bf16 converged, error <= 2 sqrt(threshold) "
                            "|b| / min(Lambda) per column; xla_bf16 finite, converged == the "
                            "true residual meets the rule; B1 launches = steps + 1 on pallas "
                            "and xla_high; envelope verdicts as JAX's, one warning (the "
-                           "out-of-envelope system -> xla_high)",
+                           "out-of-envelope system -> xla_high); B1 alone at R = 16 within 2x "
+                           "torch.matmul's error from fp64",
               "nvidia_smi": card_line, "wall_s": ph.elapsed()})
     del a, a64, exact
-    return {"solver_family_launches": b1_launches}
+    return {"solver_family_launches": b1_launches,
+            "solver_family_r16_ms": b1_alone["kernel_ms"],
+            "solver_family_r16_library_ms": b1_alone["library_ms"],
+            "solver_family_r16_bound_ms": b1_alone["bound_ms"]}
 
 
 def main() -> int:
@@ -2597,8 +3334,8 @@ def main() -> int:
     from cggp_tpu_torch.ops.pallas_cg import (pallas_cg_plan, pallas_cg_solve,
                                               pallas_cg_solve_3xtf32_emulated,
                                               pallas_cg_solve_plain, pallas_cg_sync_floor)
-    from cggp_tpu_torch.ops.pallas_matvec import (matmul_3xtf32_emulated, pallas_matvec,
-                                                  pallas_matvec_plain)
+    from cggp_tpu_torch.ops.pallas_matvec import (OUTER_STAGES, matmul_3xtf32_emulated,
+                                                  pallas_matvec, pallas_matvec_plain)
     from cggp_tpu_torch.training.optimize import adam, make_adam_step, predict_in_batches
     import cggp_tpu_torch.ops.cg as cg_module
     from cggp_tpu_torch.ops.cg import CholPreconditioner
@@ -2712,7 +3449,7 @@ def main() -> int:
             emulation, profiled = {}, None
             if rows > 8:
                 k = 256
-                emulated = matmul_3xtf32_emulated(p[:k], a)
+                emulated = matmul_3xtf32_emulated(p[:k], a, outer_every=OUTER_STAGES)
                 emulation = {"max_abs_err_vs_3xtf32_emulation_first_256_rows":
                              float((got[:k] - emulated).abs().max())}
                 profiled = kernel_device_ms(ph, lambda: pallas_matvec(p, a))
@@ -2753,8 +3490,10 @@ def main() -> int:
                     for name, fn in (
                         ("kernel", pallas_matvec), ("library", torch.matmul),
                         ("3xtf32_emulated_truncated",
-                         lambda p, a: matmul_3xtf32_emulated(p, a, truncate=True)),
-                        ("3xtf32_emulated", matmul_3xtf32_emulated))}
+                         lambda p, a: matmul_3xtf32_emulated(p, a, truncate=True,
+                                                             outer_every=OUTER_STAGES)),
+                        ("3xtf32_emulated",
+                         lambda p, a: matmul_3xtf32_emulated(p, a, outer_every=OUTER_STAGES)))}
         del exact
         emit({"phase": "B1", "cases": cases,
               "mean_signed_rel_err_on_kernel_values": one_sign,
@@ -2937,6 +3676,9 @@ def main() -> int:
     require(route_gap <= SERVE_ATOL, f"the two kernel routes differ by {route_gap}")
     serve_love_dense({"card_line": card_line, "params": params, "xq": xq,
                       "make_model": make_model, "xla": (xla_mean, xla_var)})
+    baseline_phases({"device": device, "card_line": card_line, "kernels": kernels,
+                     "data": (x_train, y_train, x_test, y_test), "selection": (iv, u, counts),
+                     "params": params, "xq": xq})
 
     # -- training: the dense CGGP training step through each route -------------
     m = params["inducing_points"].shape[0]
@@ -3535,7 +4277,7 @@ def main() -> int:
          "library_ms": kernels[name]["library_ms"],
          **{k: v for k, v in kernels[name].items()
             if k.startswith(("train_", "multi_", "loop_", "implicit_", "itergpr_", "love_",
-                             "solver_family_"))}}
+                             "solver_family_", "pathwise_", "lbfgs_"))}}
         for name in ("pallas_matvec", "pallas_cg_solve", "gram_matvec")]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,6 +65,32 @@ def test_b1_matches_plain_and_fp64(cuda, rows):
     assert _max_rel(got, exact, scale) <= 2 * _max_rel(plain, exact, scale)
 
 
+def test_b1_two_level_depth_sums_at_m_32768(cuda):
+    """B1 at the solver family's shape (R = 16 rows of bench.py's M = 32768
+    system: Matern32 over uniform(-2, 2)^8 at lengthscale 1.2, Lambda
+    uniform in [0.05, 0.5]).  With one running sum over the depth its error
+    from fp64 was 3.0x torch.matmul's (9.07e-5 against 3.06e-5, H100 80GB
+    HBM3 at 700 W); with the outer sums every 32 stages 0.50x (1.52e-5),
+    inside the 2x rule of every kernel path."""
+    from cggp_tpu_torch.ops.kernels import Matern32
+
+    rng = np.random.RandomState(0)
+    m = 32768
+    kern = Matern32()
+    kp = kern.init_params(1.0, np.full(8, 1.2), dtype=torch.float32, device=cuda)
+    z = torch.as_tensor(rng.uniform(-2, 2, (m, 8)), dtype=torch.float32, device=cuda)
+    lam = torch.as_tensor(rng.uniform(0.05, 0.5, (m,)), dtype=torch.float32, device=cuda)
+    p = torch.as_tensor(rng.standard_normal((16, m)), dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        a = (kern.K(kp, z) + torch.diag(lam)).contiguous()
+        got, lib = pallas_matvec(p, a), torch.matmul(p, a)
+        exact = p.double() @ a.double()
+    err = float((got.double() - exact).abs().max())
+    lib_err = float((lib.double() - exact).abs().max())
+    print(f"B1 error from fp64 {err:.3e}, torch.matmul's {lib_err:.3e}")
+    assert err <= 2.0 * lib_err, (err, lib_err)
+
+
 def _at_offset(t, offset):
     """A contiguous copy of ``t`` that starts ``offset`` words into its buffer."""
     view = torch.empty(t.numel() + offset, device=t.device)[offset:].view(t.shape)
@@ -176,6 +202,36 @@ def test_b2_shapes_match_plain_and_fp64(cuda, rows, m):
     path = pallas_cg_plan(rows, m, cuda)["path"]
     assert path == ("small_resident" if rows <= 8 else "tiled")
     _check_b2(a, b)
+
+
+def test_b2_two_level_depth_sums_at_m_32768(cuda):
+    """B2's tiled path at the solver family's shape (R = 16 rows of
+    bench.py's M = 32768 system, as test_b1_two_level_depth_sums_at_m_32768),
+    five CG steps (threshold 0): the iterate's error from the fp64 loop
+    within 2x the plain loop's (torch.matmul, IEEE fp32).  Measured on an
+    H100 80GB HBM3 at 700 W: 1.18x (2.40e-6 against 2.03e-6); a build with
+    one running sum over the 1024 stages 3.32x (6.74e-6)."""
+    from cggp_tpu_torch.ops.kernels import Matern32
+
+    rng = np.random.RandomState(0)
+    m, rows, steps = 32768, 16, 5
+    kern = Matern32()
+    kp = kern.init_params(1.0, np.full(8, 1.2), dtype=torch.float32, device=cuda)
+    z = torch.as_tensor(rng.uniform(-2, 2, (m, 8)), dtype=torch.float32, device=cuda)
+    lam = torch.as_tensor(rng.uniform(0.05, 0.5, (m,)), dtype=torch.float32, device=cuda)
+    b = torch.as_tensor(rng.standard_normal((rows, m)), dtype=torch.float32, device=cuda)
+    assert pallas_cg_plan(rows, m, cuda)["path"] == "tiled"
+    with torch.no_grad():
+        a = (kern.K(kp, z) + torch.diag(lam)).contiguous()
+        launches = pallas_cg_solve.launches
+        got, got_steps = pallas_cg_solve(a, b, 0.0, steps)
+        assert pallas_cg_solve.launches == launches + 1 and int(got_steps) == steps
+        plain, _ = pallas_cg_solve_plain(a, b, 0.0, steps)
+        exact, _ = pallas_cg_solve_plain(a.double(), b.double(), 0.0, steps)
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    print(f"B2 five steps' error from fp64 {err:.3e}, the plain loop's {plain_err:.3e}")
+    assert err <= 2.0 * plain_err, (err, plain_err)
 
 
 def _largest_m(device, rows, path):

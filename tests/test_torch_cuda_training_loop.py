@@ -104,6 +104,16 @@ def test_multi_step_launch_counts_and_first_chunk(cuda, impl):
         assert float(((a - b).abs() / b.abs()).max()) <= 1e-6
 
 
+def test_kmeans_fp32_repeats_bitwise_on_the_card(cuda):
+    # The segment sums add in a fixed order: two runs from one start give
+    # the same bits (with index_add_'s atomics they parted after a few
+    # passes: chip_smoke.py's select_kmeans moved 1.6e-6 to 1.1e-4 from fp64
+    # between runs).
+    xt, _, z, _, _ = _problem(cuda)
+    first, again = (kmeans_lloyd(xt, z.shape[0], initial_centroids=z) for _ in range(2))
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
 def test_kmeans_fp32_matches_fp64_on_the_card(cuda):
     xt, _, z, _, _ = _problem(cuda)
     c32, m32 = kmeans_lloyd(xt, z.shape[0], initial_centroids=z)

@@ -13,6 +13,9 @@ import cggp_tpu_torch
 from cggp_tpu_torch.models.base import GaussianLikelihood
 from cggp_tpu_torch.models.cggp import CGGP
 from cggp_tpu_torch.models.itergpr import IterGPR
+from cggp_tpu_torch.models.lpsvgp import LpSVGP
+from cggp_tpu_torch.models.pathwise import PathwiseClusterGP
+from cggp_tpu_torch.models.sgpr import SGPR
 from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.kernels import Matern32
 from cggp_tpu_torch.selection import covertree_update_inducing_parameters
@@ -53,7 +56,8 @@ def test_port_package_and_smoke_script_exist():
                    "selection/native", "selection/points", "selection/update",
                    "training/batching", "training/monitor", "ops/rff", "ops/cg_implicit",
                    "ops/logdet", "models/rowcg", "models/implicit", "utils/store",
-                   "models/gpr", "models/itergpr"):
+                   "models/gpr", "models/itergpr", "models/sgpr", "models/lpsvgp",
+                   "models/pathwise", "data", "config"):
         assert ROOT / "cggp_tpu_torch" / f"{module}.py" in PORT_SOURCES, module
 
 
@@ -76,7 +80,8 @@ def test_native_source_includes_nothing_of_jax_or_the_jax_package(path):
 
 @pytest.mark.parametrize("entry", ["resolve_device", "cggp_init_params", "likelihood",
                                    "params_from_numpy", "index_iterator", "covertree_update",
-                                   "load_posterior", "itergpr_init_params"])
+                                   "load_posterior", "itergpr_init_params", "sgpr_init_params",
+                                   "lpsvgp_init_params", "pathwise_init_params"])
 def test_entry_points_without_a_card_raise_instead_of_using_the_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(1e-6))
@@ -96,6 +101,12 @@ def test_entry_points_without_a_card_raise_instead_of_using_the_cpu(entry, monke
             load_posterior("a-posterior-directory")  # the device is resolved before any read
         elif entry == "itergpr_init_params":
             IterGPR(kernel=Matern32()).init_params(2)
+        elif entry == "sgpr_init_params":
+            SGPR(kernel=Matern32()).init_params(z)
+        elif entry == "lpsvgp_init_params":
+            LpSVGP(kernel=Matern32()).init_params(z)
+        elif entry == "pathwise_init_params":
+            PathwiseClusterGP(kernel=Matern32()).init_params(z)
         else:
             params_from_numpy({"pseudo_u": z})
     # Asking for the CPU works.

@@ -87,6 +87,18 @@ def test_kmeans_lloyd_matches_jax(init, monkeypatch):
         selection.kmeans_lloyd(_t(x), k)
 
 
+def test_kmeans_lloyd_segment_sums_in_blocks_match_jax(monkeypatch):
+    # One-hot blocks of 128 rows (7 blocks, the last ragged) against JAX's
+    # segment_sum: fp64, the same fixed point, centroids measured equal.
+    monkeypatch.setattr(tkmeans, "ONEHOT_WORDS", 12 * 128)
+    x, _ = _data(n=800)
+    start = x[5:17]
+    got_c, got_m = selection.kmeans_lloyd(_t(x), 12, initial_centroids=_t(start))
+    want_c, want_m = jax_kmeans_lloyd(jnp.asarray(x), 12, initial_centroids=jnp.asarray(start))
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=0, atol=1e-12)
+    assert float(got_m) == pytest.approx(float(want_m), rel=1e-12)
+
+
 def test_kmeans_lloyd_empty_cluster_collapses_to_zero():
     # JAX's rule (count 1, so the empty cluster's centroid is 0), checked
     # against its closed form: the first centroid is the three points' mean.

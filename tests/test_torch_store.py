@@ -1,8 +1,9 @@
 """The store of the port (``utils/store.py``) against the JAX package's
 (``cggp_tpu/utils/store.py``), both ways: config directories, serving-cache
 files of the dense ``CGGP`` (``"cg"`` and ``"chol"``), of the matrix-free
-model (``RowCGGPPosterior``) and of the exact GPs (``IterGPRPosterior``,
-``GPRPosterior``) written by one package and served by the other
+model (``RowCGGPPosterior``), of the exact GPs (``IterGPRPosterior``,
+``GPRPosterior``) and of the baselines (``SGPRPosterior``,
+``PathwisePosterior``) written by one package and served by the other
 as the writer serves its in-memory cache, equal fingerprints, refused class
 names, and the port's checkpoints."""
 
@@ -228,3 +229,81 @@ def test_checkpoint_round_trip(tmp_path):
     (tmp_path / "7" / "format.json").write_text(json.dumps({"format": "orbax"}))
     with pytest.raises(ValueError, match="no checkpoint of this package"):
         tstore.load_checkpoint(tmp_path, tparams)
+
+
+def _baseline_posteriors(kind):
+    """JAX's and the port's caches of the same parameters: ``SGPRPosterior``
+    (data-bound) or a ``PathwisePosterior`` (from a ``PathwiseClusterGP``,
+    each package's own draws), with each package's model."""
+    import jax
+    from cggp_tpu.models import PathwiseClusterGP as JaxPathwiseClusterGP
+    from cggp_tpu.models import SGPR as JaxSGPR
+    from cggp_tpu_torch.models import PathwiseClusterGP, SGPR
+
+    z, u, counts, xq = _inputs()
+    rng = np.random.default_rng(8)
+    x, y = rng.uniform(-1, 1, (50, 2)), rng.standard_normal((50, 1))
+    if kind == "sgpr":
+        jmodel, tmodel = JaxSGPR(kernel=jkernels.Matern32()), SGPR(kernel=tkernels.Matern32())
+        jparams = jmodel.init_params(jnp.asarray(z), lengthscales=np.array([0.8, 1.2]),
+                                     dtype=jnp.float64)
+        tparams = tstore.params_from_numpy(jparams, device="cpu")
+        jpost = jmodel.posterior(jparams, (jnp.asarray(x), jnp.asarray(y)))
+        tpost = tmodel.posterior(tparams, (x, y))
+    else:
+        common = dict(num_data=100, num_bases=16, num_samples=3)
+        jmodel = JaxPathwiseClusterGP(jkernels.Matern32(), **common)
+        tmodel = PathwiseClusterGP(tkernels.Matern32(), **common)
+        jparams = jmodel.init_params(jnp.asarray(z), pseudo_u=u, cluster_counts=counts,
+                                     dtype=jnp.float64)
+        tparams = tstore.params_from_numpy(jparams, device="cpu")
+        jpost = jmodel.pathwise_posterior(jparams, jax.random.PRNGKey(0))
+        tpost = tmodel.pathwise_posterior(tparams, torch.Generator().manual_seed(0))
+    return jmodel, jpost, tmodel, tpost, xq
+
+
+def _serve(model, post, xq, port):
+    from cggp_tpu.models import pathwise_samples_at as jax_samples_at
+    from cggp_tpu_torch.models import pathwise_samples_at
+
+    if hasattr(post, "weights"):
+        out = (pathwise_samples_at(model, post, torch.as_tensor(xq)) if port
+               else jax_samples_at(model, post, jnp.asarray(xq)),)
+    else:
+        out = model.posterior_predict(post, torch.as_tensor(xq) if port else jnp.asarray(xq))
+    return [a.numpy() if port else np.asarray(a) for a in out]
+
+
+def _leaves_equal(got, want):
+    got, want = tstore.flatten_params(got._asdict()), tstore.flatten_params(want._asdict())
+    assert set(got) == set(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        np.testing.assert_array_equal(got[name], want[name], name)
+
+
+@pytest.mark.parametrize("kind", ["sgpr", "pathwise"])
+def test_baseline_posterior_files_round_trip_exactly_across_the_packages(tmp_path, kind):
+    """``SGPRPosterior`` and ``PathwisePosterior`` files written by either
+    package load in the other with every array bitwise the writer's, and
+    serve as the writer serves its own cache, bitwise."""
+    from cggp_tpu_torch.models import PathwisePosterior, SGPRPosterior
+
+    jmodel, jpost, tmodel, tpost, xq = _baseline_posteriors(kind)
+    cls = SGPRPosterior if kind == "sgpr" else PathwisePosterior
+    jstore.save_posterior(tmp_path / "jax", jpost)
+    loaded = tstore.load_posterior(tmp_path / "jax", device="cpu")
+    assert type(loaded) is cls and loaded._fields == jpost._fields
+    _leaves_equal(loaded, jpost)
+    for got, want in zip(_serve(tmodel, loaded, xq, True), _serve(jmodel, jpost, xq, False)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)  # measured <= 1.3e-14
+    tstore.save_posterior(tmp_path / "port", tpost)
+    desc = json.loads((tmp_path / "port" / "posterior.json").read_text())
+    assert desc["class"] == [f"cggp_tpu.models.{kind}", cls.__name__]
+    jloaded = jstore.load_posterior(tmp_path / "port")
+    assert type(jloaded).__name__ == cls.__name__
+    _leaves_equal(jloaded, tpost)
+    again = tstore.load_posterior(tmp_path / "port", device="cpu")
+    _leaves_equal(again, tpost)
+    for got, want in zip(_serve(tmodel, again, xq, True), _serve(tmodel, tpost, xq, True)):
+        np.testing.assert_array_equal(got, want)

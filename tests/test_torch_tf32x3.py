@@ -24,7 +24,8 @@ from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.kernels import Matern32, kernel_value_from_r2, scaled_squared_distance
 from cggp_tpu_torch.ops.pallas_gram import (gram_matvec_3xtf32_emulated, gram_matvec_plain,
                                             kuu_matvec_3xtf32_emulated, kuu_matvec_plain)
-from cggp_tpu_torch.ops.pallas_matvec import (matmul_3xtf32_emulated, round_toward_zero,
+from cggp_tpu_torch.ops.pallas_matvec import (OUTER_STAGES, TF32_STAGE, matmul_3xtf32_emulated,
+                                              round_toward_zero,
                                               split_tf32, tf32_round)
 
 torch.set_num_threads(1)
@@ -145,6 +146,31 @@ def test_truncated_parts_bias_one_sign_data():
     assert rel[True].mean() < -2e-8, rel[True].mean()
     assert abs(rel[False].mean()) < abs(rel[True].mean()) / 20, rel[False].mean()
     assert max(np.abs(r).max() for r in rel.values()) < 1e-6
+
+
+@pytest.mark.parametrize("depth", [1024, 8192, 32768])
+def test_two_level_depth_sums_bound_long_sums(depth):
+    """B1's and B3's tiled launches add their running sum to an outer sum
+    every ``OUTER_STAGES`` stages.  Up to that many stages (depth 1024) the
+    two forms give the same bits; past it one running sum rounds at the
+    ulp of the growing sum on every add.  On data of one sign (uniform
+    [0, 1), 4 rows, 64 columns) the one-level model lands 4.2x (8192) and
+    10.5x (32768) the IEEE fp32 product's error from fp64, the two-level
+    model 0.71x and 1.56x (measured).  Held: two-level within 2x the fp32
+    product, and at most a quarter of the one-level error past depth 1024."""
+    rng = np.random.default_rng(0)
+    a = torch.as_tensor(rng.uniform(0, 1, (4, depth)), dtype=torch.float32)
+    b = torch.as_tensor(rng.uniform(0, 1, (depth, 64)), dtype=torch.float32)
+    exact = a.double() @ b.double()
+    one = matmul_3xtf32_emulated(a, b)
+    two = matmul_3xtf32_emulated(a, b, outer_every=OUTER_STAGES)
+    err_one, err_two = (float((t.double() - exact).abs().max()) for t in (one, two))
+    err_fp32 = float(((a @ b).double() - exact).abs().max())
+    if depth <= OUTER_STAGES * TF32_STAGE:
+        assert torch.equal(one, two)
+    else:
+        assert err_two <= err_one / 4, (err_two, err_one)
+    assert err_two <= 2.0 * err_fp32, (err_two, err_fp32)
 
 
 @pytest.mark.parametrize("kernel_name", ["se", "matern12", "matern32", "matern52"])
