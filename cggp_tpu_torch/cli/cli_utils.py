@@ -51,6 +51,7 @@ from cggp_tpu_torch.models.base import GaussianLikelihood
 from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.distance import DistanceType, create_distance_fn
 from cggp_tpu_torch.ops.kernels import Kernel, kernel_by_name
+from cggp_tpu_torch.selection.covernet import covernet_update_inducing_parameters
 from cggp_tpu_torch.selection.kmeans import kmeans_lloyd
 from cggp_tpu_torch.selection.points import greedy_selection, oips, uniform
 from cggp_tpu_torch.selection.update import (covertree_update_inducing_parameters,
@@ -64,9 +65,6 @@ ModelChoices = list(MODEL_NAMES)
 precision_names = {np.float32: "fp32", np.float64: "fp64"}
 _TORCH_DTYPES = {np.float32: torch.float32, np.float64: torch.float64}
 
-COVERNET_NOT_PORTED = (
-    "covernet (the device delta-net selection) arrives with a later slice of the port "
-    "(ROADMAP Queue A item 10); use covertree")
 PARALLEL_NOT_PORTED = (
     "--num-devices (sharded models and data-parallel serving) arrives with a later slice "
     "of the port (ROADMAP Queue A item 12)")
@@ -633,12 +631,26 @@ def create_update_fn(
             return _apply_selection(model, params, iv, means, counts)
 
     elif clustering_type == "covernet":
-        if distance_type != "euclidean" and clustering_kwargs.get("lloyds"):
-            raise ValueError("covernet Lloyd's refinement is euclidean-only; drop --lloyds "
-                             f"with -d {distance_type}")
+        spatial_resolution = float(clustering_kwargs["spatial_resolution"])
+        covernet_kwargs = {k: clustering_kwargs[k] for k in ("max_points", "lloyds", "block_size")
+                           if clustering_kwargs.get(k) is not None}
+        if distance_type != "euclidean":
+            # Lloyd's mean-shift is euclidean geometry: an explicit --lloyds
+            # is refused rather than dropped.
+            if clustering_kwargs.get("lloyds"):
+                raise ValueError("covernet Lloyd's refinement is euclidean-only; drop --lloyds "
+                                 f"with -d {distance_type}")
+            covernet_kwargs["lloyds"] = 0
 
         def update_fn(params: Dict) -> Dict:
-            raise NotImplementedError(COVERNET_NOT_PORTED)
+            # The net honours the kernel metric, read from the current
+            # kernel parameters, so re-selection follows them.
+            kernel_kwargs = ({} if distance_type == "euclidean"
+                             else {"kernel": model.kernel, "kernel_params": params["kernel"]})
+            iv, means, counts = covernet_update_inducing_parameters(
+                data, spatial_resolution, distance_type=distance_type, **kernel_kwargs,
+                **covernet_kwargs)
+            return _apply_selection(model, params, iv, means, counts)
 
     elif clustering_type == "oips":
         rho = float(clustering_kwargs["rho"])

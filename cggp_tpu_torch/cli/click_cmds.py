@@ -7,8 +7,7 @@ parent's ``common_ctx`` and leaves it as ``ip_ctx`` for the terminal
 command under it (``compute-metrics``, ``train-adam``).
 :func:`make_selection_groups` returns fresh nodes, so each driver attaches
 its own terminal commands.  ``kmeans2`` dispatches to scipy's k-means++.
-``covernet`` parses and builds its model; its update raises
-``NotImplementedError`` (ROADMAP Queue A item 10) where the net would run.
+``covernet`` is the device delta-net (``selection/covernet.py``).
 """
 
 from __future__ import annotations
@@ -66,8 +65,8 @@ def make_selection_groups() -> Dict[str, Command]:
         "spatial_resolution": spatial_resolution, "max_points": max_num_ip, "lloyds": lloyds})
     covernet.option("-s", "--spatial-resolution", type=float, required=True)
     covernet.option("-m", "--max-num-ip", type=int, default=None,
-                    help="Hard cap on M (the device net arrives with a later slice of the "
-                         "port, ROADMAP Queue A item 10).")
+                    help="Hard cap on M (net truncated with a warning, like every other "
+                         "strategy's -m). Default: grow until the resolution's full net fits.")
     covernet.option("--lloyds", type=int, default=None,
                     help="Separation-preserving Lloyd's refinement rounds (default 1; "
                          "euclidean metric only).")

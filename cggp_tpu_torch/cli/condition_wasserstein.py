@@ -12,8 +12,8 @@ The oracle (prior sample, exact posterior, W2) runs in float64; ``-p fp32``
 runs only the CDGP side in float32.  Where the JAX package splits a key
 three ways, the port draws the inputs, the prior's normals and the noise in
 that order from one ``torch.Generator`` seeded ``-s`` (:func:`uniform_draw`
-and ``normal_draw``, looked up by name).  ``--selection covernet`` (the
-device net, ROADMAP Queue A item 10) raises.
+and ``normal_draw``, looked up by name).  ``--selection covernet`` selects
+by the device net instead of the host cover tree.
 """
 
 from __future__ import annotations
@@ -24,8 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from cggp_tpu_torch.cli.cli_utils import (COVERNET_NOT_PORTED, Command, Context, FloatType,
-                                          LogdirPath, echo)
+from cggp_tpu_torch.cli.cli_utils import Command, Context, FloatType, LogdirPath, echo
 from cggp_tpu_torch.cli.uci_csv import write_rows_csv
 from cggp_tpu_torch.config import resolve_device
 from cggp_tpu_torch.models import CGGP, GPR
@@ -33,6 +32,7 @@ from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.kernels import Kernel, SquaredExponential
 from cggp_tpu_torch.ops.linalg import add_diagonal
 from cggp_tpu_torch.ops.logdet import normal_draw
+from cggp_tpu_torch.selection.covernet import covernet_update_inducing_parameters
 from cggp_tpu_torch.selection.update import covertree_update_inducing_parameters
 
 
@@ -87,8 +87,8 @@ def run_sweep(dim: int, num_data: int, resolutions, noise: float, seed: int,
     runs only the CDGP side (covertree-conditioned ``Kuu + Lambda``, CG,
     predictive moments) at another precision; ``precondition`` threads the
     model's preconditioner into the stats solve and the prediction."""
-    if selection == "covernet":
-        raise NotImplementedError(COVERNET_NOT_PORTED)
+    update_fn = (covernet_update_inducing_parameters if selection == "covernet"
+                 else covertree_update_inducing_parameters)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     dtype = torch.float64
@@ -114,7 +114,7 @@ def run_sweep(dim: int, num_data: int, resolutions, noise: float, seed: int,
 
     rows = []
     for resolution in resolutions:
-        iv, means, counts = covertree_update_inducing_parameters(data, float(resolution))
+        iv, means, counts = update_fn(data, float(resolution))
         m = iv.shape[0]
 
         cg = ConjugateGradient(1e-6, max_iterations=max(m, 8))
@@ -234,5 +234,5 @@ def make_command() -> Command:
                help="Per-solve preconditioner for the CDGP side.")
     cmd.option("--selection", choices=["covertree", "covernet"], default="covertree",
                help="Inducing-point selection for the CDGP side: the host cover tree, or the "
-                    "device net (ROADMAP Queue A item 10, not ported yet).")
+                    "device delta-net with the same separation and coverage guarantees.")
     return cmd

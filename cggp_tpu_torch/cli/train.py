@@ -8,8 +8,10 @@ format (``utils/store.py``); a run dir without ``ckpt/``, from either
 package, resumes through the config-dir contract.  JAX's generator keys
 become ``torch.Generator`` objects seeded ``-s`` on the run's device.
 
-Not ported yet: ``--num-devices`` (the sharded model, ROADMAP Queue A item
-12) and ``--recluster fused`` (the device net, item 10) raise
+``--recluster fused`` (with ``-c covernet``) pins the inducing dimension
+to a capacity and re-selects by the device net at the top of every K-step
+call (``make_device_recluster_fn``).  Not ported yet: ``--num-devices``
+(the sharded model, ROADMAP Queue A item 12) raises
 ``NotImplementedError`` after the usage checks the JAX package makes.
 """
 
@@ -17,18 +19,21 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from cggp_tpu_torch.cli.cli_utils import (COVERNET_NOT_PORTED, PARALLEL_NOT_PORTED, Command,
+from cggp_tpu_torch.cli.cli_utils import (PARALLEL_NOT_PORTED, Command,
                                           Context, DatasetType, ExistingPath, FloatType,
                                           KernelType, LogdirPath, UsageError, create_model,
                                           create_update_fn, echo, precision_names,
                                           to_device_bundle)
 from cggp_tpu_torch.config import Config, enable_x64_if_needed
 from cggp_tpu_torch.data import cast_bundle
+from cggp_tpu_torch.selection.covernet import (covernet_update_inducing_parameters,
+                                               make_device_recluster_fn)
 from cggp_tpu_torch.training.optimize import (create_monitor, make_cg_stats_callback,
                                               make_metrics_callback, make_param_callback,
                                               train_using_adam_and_update)
@@ -160,7 +165,10 @@ def train_cggp_adam(ctx: Context, num_iterations, batch_size, num_inducing_point
                                  distance_type=distance_type, seed=obj["seed"],
                                  **clustering_kwargs)
 
+    recluster_fn = None
     if recluster == "fused":
+        # Pin the inducing dimension to a fixed capacity (mask-padded, exact
+        # no-ops) and run the covernet update at the top of every K-step call.
         if clustering_type != "covernet":
             raise UsageError("--recluster fused requires -c covernet")
         if steps_per_call <= 1:
@@ -169,7 +177,43 @@ def train_cggp_adam(ctx: Context, num_iterations, batch_size, num_inducing_point
         if trainable_u:
             raise UsageError("--recluster fused overwrites pseudo_u every dispatch; it is "
                              "incompatible with --trainable-u")
-        raise NotImplementedError(f"--recluster fused: {COVERNET_NOT_PORTED}")
+        ck = {k: v for k, v in clustering_kwargs.items() if k != "max_points"}
+        ck["lloyds"] = 0  # the per-chunk updates run lloyds=0; the first one too
+        if distance_type != "euclidean":
+            ck.update(kernel=model.kernel, kernel_params=params["kernel"])
+        with torch.no_grad():
+            iv, u0, c0 = covernet_update_inducing_parameters(train_data,
+                                                             distance_type=distance_type, **ck)
+        if num_inducing_points:
+            cap = num_inducing_points
+            multiple = model._pad_multiple_for(cap)
+            if cap % multiple != 0:
+                raise UsageError(f"-m {cap} must be a multiple of {multiple} for this model "
+                                 "(--matrix-free pads to the panel --block; --num-devices to "
+                                 "the mesh size)")
+        else:
+            # ~25 % headroom for the net's drift, rounded up to the lcm of
+            # the model's pad multiple and 64.
+            want = int(iv.shape[0]) + max(int(iv.shape[0]) // 4, 8)
+            multiple = math.lcm(model._pad_multiple_for(want), 64)
+            cap = -(-want // multiple) * multiple
+        if cap < iv.shape[0]:
+            raise UsageError(f"-m {cap} is below the initial net size {iv.shape[0]}; raise -m "
+                             "or --spatial-resolution")
+        fresh = model.init_params(iv, pseudo_u=u0, cluster_counts=c0, capacity=cap,
+                                  dtype=iv.dtype, device=iv.device)
+        # The (possibly resumed) hyperparameters stay; only the inducing
+        # state moves to the capacity-pinned layout.
+        for k in params:
+            if k not in ("inducing_points", "pseudo_u", "cluster_counts", "inducing_mask"):
+                fresh[k] = params[k]
+        params = fresh
+        recluster_fn = make_device_recluster_fn(model, train_data, spatial_resolution, cap,
+                                                lloyds=0, distance_type=distance_type)
+        update_fn = None
+        info["capacity"] = cap
+        echo(f"fused re-clustering: m0={iv.shape[0]} pinned at capacity {cap}, update runs "
+             f"inside each {steps_per_call}-step dispatch")
     info["recluster"] = recluster
 
     metrics_fn = make_metrics_callback(model, train_data, test_data,
@@ -180,6 +224,11 @@ def train_cggp_adam(ctx: Context, num_iterations, batch_size, num_inducing_point
         monitor.add_callback(
             "checkpoint", lambda step, p: save_checkpoint(Path(logdir) / "ckpt", p, step),
             record_step=checkpoint_every)
+    if recluster_fn is not None:
+        # A kernel-metric net can outgrow the capacity and is then truncated
+        # without a warning: m_real == capacity is the sign.
+        monitor.add_callback("m_real", lambda step, p: {
+            "selection/m_real": float(p["inducing_mask"].sum())}, record_step=record_step)
     if hasattr(model, "cg_stats"):
         monitor.add_callback("cg", make_cg_stats_callback(model, train_data,
                                                           batch_size=batch_size),
@@ -240,6 +289,7 @@ def train_cggp_adam(ctx: Context, num_iterations, batch_size, num_inducing_point
         monitor=monitor,
         steps_per_call=steps_per_call,
         precond_fn=precond_fn,
+        recluster_fn=recluster_fn,
         **resolver_kwargs,
     )
     save_config_dir(logdir, params, info)
@@ -270,7 +320,7 @@ def make_command() -> Command:
                help="covertree/covernet resolution, on the metric's scale.")
     sub.option("--recluster", choices=["between", "fused"], default="between",
                help="'between' = host update between dispatches; 'fused' = inside each "
-                    "dispatch (the device net: ROADMAP Queue A item 10, not ported yet).")
+                    "dispatch (the device net at a pinned capacity; needs -c covernet).")
     sub.option("-l", "--learning-rate", type=float, default=0.01)
     sub.option("-e", "--error-threshold", type=float, default=1e-5)
     sub.option("-r", "--record-step", type=int, default=100)

@@ -33,12 +33,17 @@ Re-clustering: :meth:`CGGP.assign_clusters` swaps in a host selection
 (re-padded to the pinned capacity on capacity-padded params) and
 :meth:`CGGP.assign_clusters_device` is the fixed-capacity swap.
 
-Not ported yet: ``posterior_extend`` (ROADMAP Queue A item 10) is absent.
+Streaming: :meth:`CGGP.posterior_extend` grows an unpadded serving cache
+after :func:`~cggp_tpu_torch.selection.covernet.covernet_extend_update`
+(a bordered Cholesky factor, or a CG cache whose ``nu`` solve starts warm
+from the old one); capacity-padded models ingest through
+``training.optimize.make_streaming_ingest_fn``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -49,7 +54,7 @@ from cggp_tpu_torch.ops.cg import (CGStats, CholPreconditioner, ConjugateGradien
                                    SpectralPreconditioner, _cholesky_or_nan,
                                    pivoted_cholesky_preconditioner)
 from cggp_tpu_torch.ops.cg_implicit import pad_inducing
-from cggp_tpu_torch.ops.linalg import add_diagonal
+from cggp_tpu_torch.ops.linalg import add_diagonal, chol_extend, triangular_inv_extend
 from cggp_tpu_torch.ops.logdet import (eval_logdet, eval_logdet_from_solves,
                                        lanczos_extremal_eigs, lanczos_quad_cache_rows,
                                        love_seed_row, love_variance, rademacher, slq_logdet)
@@ -490,6 +495,120 @@ class CGGP(ClusterGP):
         return CGGPPosterior(kernel_params=kp, inducing_points=z, kmm_lambda=kmm_lambda,
                              nu=nu, precond_state=() if precond is None else precond.state,
                              chol=None, inducing_mask=mask, lam=var[:, 0])
+
+    def posterior_extend(self, post: "CGGPPosterior", params: Dict,
+                         key: Optional[torch.Generator] = None) -> "CGGPPosterior":
+        """Extend a serving cache after a streaming update in O(dM M^2)
+        instead of the O(M'^3) rebuild.
+
+        ``params`` come from a streaming update
+        (:func:`~cggp_tpu_torch.selection.covernet.covernet_extend_update`):
+        the same kernel hyperparameters, the cache's inducing points an
+        unchanged prefix of ``params["inducing_points"]`` with ``dM >= 0``
+        centres appended, and merged ``pseudo_u`` / ``cluster_counts``.
+        ``nu`` is always solved again; the factor work is what is saved:
+
+        - a Cholesky cache with the Lambda prefix unchanged: the bordered
+          factor (:func:`~cggp_tpu_torch.ops.linalg.chol_extend`), exactly
+          the ``posterior(params, solver="chol")`` cache; a non-finite
+          factor falls back to ``posterior(params)`` with a warning;
+        - a CG cache (any Lambda drift): the [M, M] block reused with its
+          diagonal updated, only the dM new kernel rows evaluated, an
+          exact-factor state ``{"chol_w": W}`` border-extended
+          (:func:`~cggp_tpu_torch.ops.linalg.triangular_inv_extend`; stale
+          but SPD on a drifted prefix, so drift costs CG steps, not
+          accuracy), spectral states rebuilt, and ``nu`` warm-started from
+          the old ``nu`` through the model's CG route;
+        - refused, in this order: capacity-padded caches (they grow through
+          ``assign_clusters_device``), LOVE caches, changed kernel
+          hyperparameters, a moved prefix, and a Cholesky cache under
+          Lambda drift.
+
+        The prefix and Lambda checks read the device on the host."""
+        if post.inducing_mask is not None or "inducing_mask" in params:
+            raise ValueError("posterior_extend targets unpadded caches; capacity-padded models "
+                             "grow inside their padding via assign_clusters_device")
+        if post.lanczos_r is not None:
+            raise ValueError("a LOVE (solver='lanczos') cache cannot be extended — the Krylov "
+                             "basis is not incremental; rebuild with posterior(params, "
+                             "solver='lanczos')")
+        kp = params["kernel"]
+        if set(kp) != set(post.kernel_params) or not all(
+                torch.equal(kp[k], post.kernel_params[k]) for k in kp):
+            raise ValueError("kernel hyperparameters changed since the cache was built; every "
+                             "cached block depends on them — rebuild with posterior()")
+        z = params["inducing_points"]
+        z_old = post.inducing_points
+        m0, m1 = z_old.shape[0], z.shape[0]
+        if m1 < m0 or not torch.equal(z[:m0], z_old):
+            raise ValueError("params['inducing_points'] must extend the cache's centers as an "
+                             "unchanged prefix (covernet_extend appends, never moves); rebuild "
+                             "with posterior() after a full re-selection")
+        u = params["pseudo_u"]
+        lam_new = self.diag_variance(params)[:, 0]
+        lam_prefix_same = post.lam is not None and torch.equal(lam_new[:m0], post.lam)
+        dm = m1 - m0
+
+        if post.chol is not None:
+            if not lam_prefix_same:
+                raise ValueError(
+                    "Lambda drifted on the cached prefix (merged counts or changed likelihood "
+                    "variance): a cho_solve through the stale factor would serve wrong "
+                    "values. Build streaming caches with posterior(params, solver='cg') — CG "
+                    "verifies the true residual — or rebuild this one.")
+            if dm == 0:
+                return post._replace(nu=torch.cholesky_solve(u, post.chol))
+            a21 = self.kernel.K(kp, z[m0:], z_old)
+            a22 = add_diagonal(self.kernel.K(kp, z[m0:]), lam_new[m0:])
+            chol = chol_extend(post.chol, a21, a22)
+            if not bool(torch.isfinite(chol).all()):
+                warnings.warn("posterior_extend: bordered Cholesky produced a non-finite factor "
+                              "(ill-conditioned border at this dtype); rebuilding the cache "
+                              "from scratch instead.")
+                return self.posterior(params, key=key)
+            return CGGPPosterior(kernel_params=kp, inducing_points=z, kmm_lambda=None,
+                                 nu=torch.cholesky_solve(u, chol), precond_state=(), chol=chol,
+                                 lam=lam_new)
+
+        # -- CG cache -----------------------------------------------------------
+        if post.lam is not None:
+            top_left = add_diagonal(post.kmm_lambda, lam_new[:m0] - post.lam)
+        else:  # a cache without Lambda cannot separate K from it: rebuild the block
+            top_left = add_diagonal(self.kernel.K(kp, z_old), lam_new[:m0])
+        if dm == 0:
+            kmm_lambda = top_left
+        else:
+            a21 = self.kernel.K(kp, z[m0:], z_old)
+            a22 = add_diagonal(self.kernel.K(kp, z[m0:]), lam_new[m0:])
+            kmm_lambda = torch.cat([torch.cat([top_left, a21.T], dim=1),
+                                    torch.cat([a21, a22], dim=1)], dim=0)
+
+        state = post.precond_state
+        if isinstance(state, dict) and dm > 0:
+            # Border-extend the exact-factor state W = L^{-1}: exact for the
+            # old factor's system plus the new border, a stale (still SPD)
+            # preconditioner under prefix drift.
+            with torch.no_grad():
+                w11 = state["chol_w"]
+                l21 = a21 @ w11.T
+                l22 = _cholesky_or_nan(a22 - l21 @ l21.T)
+                w_ext = triangular_inv_extend(w11, l21, l22)
+                eye = torch.eye(m1, dtype=w_ext.dtype, device=w_ext.device)
+                state = {"chol_w": torch.where(torch.isfinite(w_ext).all(), w_ext, eye)}
+        elif (self.precondition is not None and not isinstance(state, dict)
+              and (dm > 0 or not lam_prefix_same)):
+            # Spectral states have no border algebra: rebuilt from the new
+            # system (O(M' rank^2)).  Identity states skip the branch.
+            kmm = add_diagonal(kmm_lambda, -lam_new)
+            precond = self._build_preconditioner(kp, z, kmm, lam_new[:, None], key)
+            state = () if precond is None else precond.state
+
+        nu0 = post.nu if dm == 0 else torch.cat(
+            [post.nu, post.nu.new_zeros((dm, post.nu.shape[1]))])
+        nu = self.conjugate_gradient(kmm_lambda, u, initial_solution=nu0,
+                                     preconditioner=_precond_from_state(state))
+        return CGGPPosterior(kernel_params=kp, inducing_points=z, kmm_lambda=kmm_lambda,
+                             nu=nu, precond_state=state, chol=None, lam=lam_new)
 
     def posterior_mean(self, post: "CGGPPosterior", x_new: torch.Tensor) -> torch.Tensor:
         """CG-free serving mean: ``K(x, Z) @ nu``."""

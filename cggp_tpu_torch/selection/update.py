@@ -17,20 +17,19 @@ import torch
 
 from cggp_tpu_torch.config import default_float, resolve_device
 from cggp_tpu_torch.selection.covertree import CoverTree
-from cggp_tpu_torch.selection.kmeans import kmeans_indices_and_distances
+from cggp_tpu_torch.selection.kmeans import _segment_sums, kmeans_indices_and_distances
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _means_and_counts_from_labels(y: torch.Tensor, labels: torch.Tensor,
                                   num_clusters: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-cluster y means ``[M, P]`` and counts ``[M, 1]`` (segment sums)."""
-    counts = torch.zeros(num_clusters, dtype=y.dtype, device=y.device)
-    counts.index_add_(0, labels, torch.ones(y.shape[0], dtype=y.dtype, device=y.device))
-    sums = torch.zeros((num_clusters, y.shape[-1]), dtype=y.dtype, device=y.device)
-    sums.index_add_(0, labels, y)
-    safe_counts = torch.clamp(counts, min=1.0)
-    return sums / safe_counts[:, None], safe_counts[:, None]
+    """Per-cluster y means ``[M, P]`` and counts ``[M, 1]``: segment sums in
+    a fixed order (:func:`_segment_sums`), so the same bits on every run."""
+    ones = torch.ones((y.shape[0], 1), dtype=y.dtype, device=y.device)
+    sums = _segment_sums(torch.cat([y, ones], dim=-1), labels, num_clusters)
+    safe_counts = torch.clamp(sums[:, -1:], min=1.0)
+    return sums[:, :-1] / safe_counts, safe_counts
 
 
 def labels_update_inducing_parameters(data: Tuple[torch.Tensor, torch.Tensor],

@@ -6,7 +6,8 @@ from cggp_tpu_torch.training.monitor import Monitor
 from cggp_tpu_torch.training.optimize import (adam, bind_predict_fn, create_monitor,
                                               make_adam_multi_step, make_adam_step,
                                               make_cg_stats_callback, make_metrics_callback,
-                                              make_param_callback, predict_in_batches,
+                                              make_param_callback, make_streaming_ingest_fn,
+                                              predict_in_batches,
                                               train_chunked_adam, train_full_batch_adam,
                                               train_using_adam_and_update,
                                               train_using_device_lbfgs,
@@ -25,6 +26,7 @@ __all__ = [
     "make_cg_stats_callback",
     "make_metrics_callback",
     "make_param_callback",
+    "make_streaming_ingest_fn",
     "predict_in_batches",
     "train_chunked_adam",
     "train_full_batch_adam",

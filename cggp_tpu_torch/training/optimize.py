@@ -11,7 +11,9 @@
   every step drawn in order from the one generator, the losses returned as
   a ``[K]`` tensor; the host reads nothing of its own (a solver route may
   still read its stop rule, as ``"pallas"`` does).  ``precond_fn`` freezes
-  the CG preconditioner for the chunk.
+  the CG preconditioner for the chunk; ``recluster_fn`` re-selects the
+  inducing points at the top of every chunk (the device delta-net's
+  fixed-capacity update).
 * :func:`train_using_adam_and_update` — the full Adam loop: host
   re-clustering through ``update_fn`` (the optimizer state re-initialised
   when a shape changes), the trainable mask, ``steps_per_call`` chunks,
@@ -52,9 +54,12 @@
   recursion and zoom line search, the vectors on the device and the line
   search's decisions on the host) and the two vanilla variants.
 
-Not ported yet, each raising ``NotImplementedError`` where it is a switch
-of a ported function: ``mesh`` training and serving (ROADMAP Queue A item
-12) and ``recluster_fn`` (device re-clustering inside a chunk, item 10).
+* :func:`make_streaming_ingest_fn` — streaming ingest of capacity-padded
+  params: the padded net growth and statistics merge, the parameter swap
+  and the serving cache's rebuild, with no shape change.
+
+Not ported yet, raising ``NotImplementedError`` where it is a switch of a
+ported function: ``mesh`` training and serving (ROADMAP Queue A item 12).
 """
 
 from __future__ import annotations
@@ -180,15 +185,19 @@ def make_adam_multi_step(loss_fn: Callable, optimizer: Adam, data, trainable_mas
     ``precond_fn(params) -> state`` builds the CG preconditioner once per
     call from the chunk's entry parameters and reuses it for all K steps;
     ``loss_fn`` then takes ``(params, batch, key, precond_state)``
-    (``CGGP.precond_state`` and ``training_loss(precond_override=...)``)."""
-    if recluster_fn is not None:
-        raise NotImplementedError(
-            "recluster_fn (device re-clustering inside a K-step chunk) arrives with the "
-            "device-selection slice of the port (ROADMAP Queue A item 10); re-cluster between "
-            "chunks with train_using_adam_and_update(update_fn=...)")
+    (``CGGP.precond_state`` and ``training_loss(precond_override=...)``).
+
+    ``recluster_fn(params) -> params`` re-selects the inducing points at the
+    top of every call, before the preconditioner is built: a fixed-shape
+    update of capacity-padded params
+    (:func:`~cggp_tpu_torch.selection.covernet.make_device_recluster_fn`),
+    so the optimizer state stays aligned.  The inducing buffers must stay
+    non-trainable (the default)."""
     x, y = data
 
     def multi_step(params: Dict, opt_state: AdamState, idx_chunk: torch.Tensor, key):
+        if recluster_fn is not None:
+            params = recluster_fn(params)
         if precond_fn is not None:
             precond = precond_fn(params)
 
@@ -306,9 +315,15 @@ def train_using_adam_and_update(
             "step per call it is identical to the model's own per-step build, just with a "
             "different loss_fn signature")
     if recluster_fn is not None:
-        raise NotImplementedError(
-            "recluster_fn (device re-clustering inside a K-step chunk) arrives with the "
-            "device-selection slice of the port (ROADMAP Queue A item 10); use update_fn")
+        if steps_per_call <= 1:
+            raise ValueError(
+                "recluster_fn (fully-fused re-clustering) requires steps_per_call > 1 — it "
+                "re-selects inducing points inside each K-step call")
+        if update_fn is not None and update_during_training:
+            raise ValueError(
+                "pass either recluster_fn (device, inside the call) or update_fn with "
+                "update_during_training (host, between calls), not both — they would "
+                "re-cluster twice")
     if mesh is not None:
         raise NotImplementedError("mesh (data-parallel) training arrives with the parallel "
                                   "slice of the port (ROADMAP Queue A item 12)")
@@ -322,7 +337,8 @@ def train_using_adam_and_update(
         if mode not in step_cache:
             fn = loss_fn if mode is None else loss_fn_for_mode(mode)
             step_cache[mode] = make_adam_multi_step(fn, optimizer, data, trainable_mask,
-                                                    precond_fn=precond_fn)
+                                                    precond_fn=precond_fn,
+                                                    recluster_fn=recluster_fn)
         return step_cache[mode]
 
     multi_step = step_for(current_mode)
@@ -1152,3 +1168,35 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
         return torch.cat(means)[:n], None
     outs = [model.posterior_predict(post, xb) for xb in batches]
     return torch.cat([m for m, _ in outs])[:n], torch.cat([v for _, v in outs])[:n]
+
+
+def make_streaming_ingest_fn(model, resolution: float, block_size: int = 4096,
+                             posterior_solver: str = "chol"):
+    """``ingest(params, x_new, y_new) -> (params', posterior')``: the whole
+    streaming-serving update of capacity-padded params
+    (``init_params(capacity=...)``) with no shape change — the padded net
+    growth and sufficient-statistics merge
+    (:func:`~cggp_tpu_torch.selection.covernet.covernet_extend_update_padded`),
+    the swap (``assign_clusters_device``) and ``model.posterior(solver=
+    posterior_solver)``.  ``posterior_solver`` is ``"chol"`` or ``"cg"``;
+    ``"auto"`` is refused, as in the JAX package, whose jitted ingest cannot
+    run the conditioning estimate.  A net outgrowing the capacity is
+    truncated: watch ``mask.sum()``."""
+    if posterior_solver not in ("chol", "cg"):
+        raise ValueError("posterior_solver must be 'chol' or 'cg' for the jitted ingest (the "
+                         "'auto' conditioning estimate cannot run under jit)")
+    from cggp_tpu_torch.selection.covernet import covernet_extend_update_padded
+
+    def ingest(params: Dict, x_new: torch.Tensor, y_new: torch.Tensor):
+        if "inducing_mask" not in params:
+            raise ValueError("make_streaming_ingest_fn requires capacity-padded params "
+                             "(init_params(capacity=...)) — static shapes are what make the "
+                             "ingest a single compiled program")
+        with torch.no_grad():
+            z, u, counts, mask = covernet_extend_update_padded(
+                params["inducing_points"], params["pseudo_u"], params["cluster_counts"],
+                params["inducing_mask"], (x_new, y_new), resolution, block_size=block_size)
+            new_params = model.assign_clusters_device(params, z, u, counts, mask)
+            return new_params, model.posterior(new_params, solver=posterior_solver)
+
+    return ingest

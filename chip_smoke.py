@@ -41,7 +41,7 @@ Phases, each printing one JSON line of its own:
               the data-bound cache (RMSE falling), the device L-BFGS for 20
               iterations (ending at most 1e-3 |scipy's| above scipy's).
    ``train_lpsvgp`` / ``train_pathwise``  ``LpSVGP`` and
-              ``PathwiseClusterGP`` (S = 8, L = 512), float64, 100 adam(0.01)
+              ``PathwiseClusterGP`` (S = 8, L = 512), float64, 50 adam(0.01)
               steps on batches of 2048: the last 10 steps' mean loss below
               the first 10's.  No kernel runs in these three.
    ``pathwise_cggp``  ``build_pathwise_posterior(solver="cg")`` on the
@@ -88,7 +88,7 @@ Phases, each printing one JSON line of its own:
               pass.
    ``train_multi_chol`` / ``train_multi_chol_frozen`` / ``train_multi_resident``
               ``make_adam_multi_step`` at K = 25 (``bench.py``'s method: a
-              warm-up chunk, then 2 windows of 4 chunks, the best window's
+              warm-up chunk, then 2 windows of 2 chunks, the best window's
               steps/s) through B1 under the exact factor at relative 1e-5
               (rebuilt every step, or frozen per chunk by
               ``precond_fn=model.precond_state``) and through B2 with no
@@ -118,14 +118,14 @@ Phases, each printing one JSON line of its own:
 11. ``reference_implicit``  the fp64 Cholesky posterior over the real points.
 12. ``serve_implicit_pallas`` / ``serve_implicit_xla``  the matrix-free
               serving path (``posterior(solver="cg")`` + ``predict_in_batches``,
-              2 x 8192 query points) through B3 and through the plain blocked
+              8192 query points) through B3 and through the plain blocked
               route, with the B3 launch counts set to 0 just before and read
               just after: every CG matvec must have gone through B3.
 13. ``check_implicit_tight_{pallas,xla}``  one 8192-row batch per route at relative
               threshold 1e-9, held tightly against the fp64 posterior.
     ``reference_love_implicit`` / ``serve_love_implicit_xla`` /
               ``serve_love_implicit_pallas``  LOVE serving (rank 128) of the
-              same 2 x 8192 points: an fp64 LOVE cache on the blocked route,
+              same 8192 points: an fp64 LOVE cache on the blocked route,
               then fp32 caches through the blocked route and through B3 (B3
               launches = the nu solve's steps + 1 + 128; R's pad columns
               zero); B3's variances within 2x the blocked route's gap from the
@@ -141,13 +141,13 @@ Phases, each printing one JSON line of its own:
     ``train_implicit_pallas`` / ``train_implicit_xla``  ``make_adam_step``
               through B3 and through the blocked route: the first step against
               fp64 (B3 at most 2x the fp32 plain route's gap), 1 warm-up step
-              (peak device memory over it, beside one [M, M] fp32 buffer) and 3
+              (peak device memory over it, beside one [M, M] fp32 buffer) and 2
               timed steps with the launch counts set to 0 just before and read
               just after (B3: ``kuu_matvec`` = the steps + 1 of every forward
               and backward solve, no ``gram_matvec``; blocked route: none);
               B3's first-step CG steps within max(3, 5 %) of the plain route's.
-    ``train_multi_implicit``  ``make_adam_multi_step`` at K = 5 through B3,
-              its chunk against 5 single steps, then a chunk with the factor
+    ``train_multi_implicit``  ``make_adam_multi_step`` at K = 3 through B3,
+              its chunk against 3 single steps, then a chunk with the factor
               frozen (``precond_fn=model.precond_state``), launches counted.
     ``train_loop_implicit``  ``train_using_adam_and_update`` for 10 steps at
               K = 5 through B3, a native cover-tree update at resolution 0.15
@@ -237,12 +237,48 @@ Phases, each printing one JSON line of its own:
               NLPD and ELBO against an fp64 blocked run, and its two ELBOs
               against each other (``CLI_B3_FP64_LIMITS``,
               ``CLI_B3_ELBO_BATCHES_REL``); the Lanczos condition number
-              finite; the command as typed (the cap of 100) reported; B3's
+              finite; the command as typed (the cap of 100, on the 2,048
+              rows) reported; B3's
               operator against float64 within ``CLI_OPERATOR_FACTOR`` times
               the blocked fp32 route's error.
     ``cli_predict``  ``train train-cggp-adam`` (25 steps), then ``predict
               --posterior-dir`` twice over all 435,000 points: the second run
               loads the cache, its dumps bitwise the first's.
+18. ``select_covernet``  ``covernet_update_inducing_parameters`` on the
+              float32 training split at euclidean resolution 0.35 and 0.15
+              (Lloyd's 1) and covariance 0.30 at the kernel's init
+              parameters: two runs bitwise equal; the scan's net re-decided
+              in float64 (a centre iff no earlier centre in range), a
+              decision differing only where a pair's float64 metric lies
+              within ``COVERNET_BAND_ULPS`` ulps of the threshold (counted);
+              the fp32 net equal to the float64 run's where none did;
+              separation and coverage in float64 (coverage 2x after Lloyd's);
+              M, wall time and host reads printed.
+    ``train_recluster_fused``  ``ImplicitCGGP(use_pallas=True)`` at capacity
+              2048, ``make_adam_multi_step`` at K = 25 on batches of 2048, one
+              chunk per variant: ``none``, ``fused`` (``recluster_fn`` of the
+              covariance net at 0.30) and ``host`` (the same update before
+              the chunk); B3 launches = the steps + 1 of every forward and
+              backward solve, none from the re-selection; the fused call's
+              selection is the re-selection of its entry parameters and the
+              host's equals it; losses finite, truncation at the capacity
+              reported; steps/s, the re-selection's share and peak memory.
+    ``stream_extend``  ``CGGP.posterior_extend`` against the rebuild at M =
+              2048, 4096, 8192 with dM = 128: a Cholesky cache on a pure
+              append, a CG cache under Lambda drift through B1 (launches =
+              the nu solve's steps + 1, the exact factor border-extended),
+              and at M = 2048 a B2 case (no preconditioner, absolute
+              threshold: one launch); 4096 points served from each, at most
+              2x the fp32 rebuild's gap from a float64 Cholesky rebuild.
+    ``stream_ingest``  ``make_streaming_ingest_fn`` at capacity 2048 (res
+              0.28) and 8192 (0.155) from a 20,000-point net, six ingests of
+              4096 points with the ``"chol"`` and the ``"cg"`` (B1) cache:
+              each cache bitwise ``posterior(new params)``, ``mask.sum()``
+              non-decreasing within the capacity, a second run bitwise equal.
+    ``cli_covernet``  ``uci ... covernet -s 0.35 compute-metrics`` and ``train
+              ... -c covernet --recluster fused`` (one call of 25 steps) as
+              processes: JAX's result keys, finite metrics and parameters,
+              the mask within the capacity.
 
 Bounds (``bound_parts``): the least time of an fp32-accurate result, the
 smaller of the fp32 FMA time and three TF32 passes on the tensor cores, then
@@ -307,7 +343,7 @@ IMPLICIT_SELECTION = "cggp_tpu_torch/assets/selection_covertree_r015.npz"
 IMPLICIT_M = 9576
 IMPLICIT_BLOCK = 2048
 IMPLICIT_M_PAD = 10240
-IMPLICIT_BATCHES = 2
+IMPLICIT_BATCHES = 1  # 2 before the device-net phases came (PERF.md §4)
 IMPLICIT_MAX_CG = 1000  # the pseudo-u solve needs ~160 steps; the default 100 stops short
 IMPLICIT_THRESHOLD = 1e-5  # relative; the CLI's default
 IMPLICIT_TIGHT_THRESHOLD = 1e-9
@@ -364,7 +400,7 @@ JAX_TRAIN_STEP0 = {
 # The JAX package's e2e selection and training run (bench.py::end_to_end_metrics):
 # the cover tree at resolution 0.35 over the float32 training split, then
 # make_adam_multi_step at K = 25 in windows of 4 chunks, best of 3 there;
-# best of 2 here, to keep the whole run near half its time limit.
+# best of 2 windows of 2 chunks here, to keep the whole run inside its budget.
 SELECT_RES = 0.35
 # Z and u of a fresh native build against the committed selection (built by
 # the JAX package from the same float32 split): the JAX package's own native
@@ -395,7 +431,7 @@ KMEANS_TOL = {"mean_distance_rel": 1e-4, "passes": 5, "centroid_max_abs": SELECT
               "centroid_abs_sum_rel": 3e-4}
 MULTI_K = 25
 MULTI_WINDOWS = 2
-MULTI_CHUNKS = 4
+MULTI_CHUNKS = 2  # 4 (bench.py's windows) before the device-net phases came (PERF.md §4)
 MULTI_BATCH_SEED = 1  # the index chunks' numpy seed (bench.py: PRNGKey(1))
 MULTI_PROBE_SEED = 2  # the probes: one generator on the card for the whole phase
 # The warm-up chunk against K make_adam_step calls on the same indices and
@@ -412,7 +448,7 @@ METRICS_BATCH = 8192
 # | Kmn] block of 2059 rows at M = 10240, forward and backward.
 IMPLICIT_TRAIN_ROWS = 1 + 2 * TRAIN_PROBES + TRAIN_BATCH
 IMPLICIT_TRAIN_WARMUP = 1
-IMPLICIT_TRAIN_STEPS = 3  # timed single steps a route (5 before the LOVE phases came)
+IMPLICIT_TRAIN_STEPS = 2  # timed single steps a route (5 before LOVE, 3 before the device net)
 IMPLICIT_TRAIN_BATCH_SEED = 4  # batch indices: a CPU generator, drawn up front
 IMPLICIT_TRAIN_PROBE_SEED = 5  # the probes: a generator on the card, reseeded per phase
 # The float64 yardstick of the first step: relative threshold 1e-12 (the
@@ -420,11 +456,12 @@ IMPLICIT_TRAIN_PROBE_SEED = 5  # the probes: a generator on the card, reseeded p
 # must stop before.
 IMPLICIT_REF_THRESHOLD = 1e-12
 IMPLICIT_REF_MAX_CG = 5000
-IMPLICIT_MULTI_K = 5
+IMPLICIT_MULTI_K = 3  # train_multi_implicit's chunk (5 before the device-net phases came)
+IMPLICIT_LOOP_K = 5  # train_loop_implicit's steps_per_call
 IMPLICIT_LOOP_ITERATIONS = 10
 IMPLICIT_LOOP_RECORD_STEP = 5
 IMPLICIT_SELECT_RES = 0.15  # the committed selection's resolution
-IMPLICIT_METRICS_POINTS = 8192
+IMPLICIT_METRICS_POINTS = 4096  # 8192 before the device-net phases came (PERF.md §4)
 # The JAX package's fp32 values for the first matrix-free training step (the
 # train_implicit_pallas configuration on the blocked XLA route), on the CPU,
 # from tests/jax_implicit_train_reference.py fed this script's probes and
@@ -511,8 +548,8 @@ JAX_ITERGPR_STEP0 = {
 # batches of 2048; the pathwise serving cache of the serving workload's CGGP
 # at S = 8 samples of L = 512 bases.
 SGPR_LBFGS_ITERATIONS = 20
-SGPR_CPU_CHECK_ROWS = None
-BASELINE_STEPS = 100
+SGPR_CPU_CHECK_ROWS = 65_536  # all 291,450 before the device-net phases came (PERF.md §4)
+BASELINE_STEPS = 50  # 100 before the device-net phases came (PERF.md §4)
 BASELINE_SEED = 9
 PATHWISE_SAMPLES = 8
 PATHWISE_BASES = 512
@@ -533,7 +570,7 @@ PATHWISE_MOMENT_BASES = (512, 4096, 32768, 262144)
 GPR_LBFGS_N = 10_000
 GPR_LBFGS_ITERATIONS = 50
 ITERGPR_LBFGS_ITERATIONS = 1
-ITERGPR_LBFGS_SMALL_ITERATIONS = 6  # 10 before the CLI phases came
+ITERGPR_LBFGS_SMALL_ITERATIONS = 4  # 10 before the CLI phases, 6 before the device net
 ITERGPR_LBFGS_BUDGET_S = 300
 # The experiment CLI (cli_phases): the paper's pipeline through the port's
 # console entry on the E2E data.  The CLI's loader normalises the columns
@@ -591,6 +628,22 @@ JAX_UCI_RESULT_KEYS = ["seed", "model", "dataset", "train_data_size", "test_data
                        "preconditioner", "logdet_variant", "dot", "test/rmse", "test/nlpd",
                        "train/elbo", "condition_number", "eig_min", "eig_max",
                        "condition_method", "estimator", "eig_min_is_upper_bound"]
+# The device delta-net, fused re-clustering and streaming phases
+# (covernet_streaming_phases): the JAX package's chip workloads
+# (scripts/covernet_chip.py, fused_recluster_chip.py, streaming_chip.py).
+COVERNET_CASES = (("euclidean", 0.35, 1), ("euclidean", 0.15, 1), ("covariance", 0.30, 0))
+COVERNET_BAND_ULPS = 8  # fp32 ulps of a metric's rounding scale: a decision may flip inside
+FUSED_CAPACITY = 2048
+FUSED_RES = 0.30  # covariance metric at the kernel's init parameters
+FUSED_CHUNKS = 1  # of K = 25 steps, per variant
+STREAM_MS = (2048, 4096, 8192)
+STREAM_DM = 128
+STREAM_QUERIES = 4096  # served points of stream_extend, points of each ingest
+STREAM_B2_THRESHOLD = 1e-3  # absolute, on 0.5 |r|^2 of u ~ N(0, 1) rows (|u|^2 ~ M)
+STREAM_B2_NOISE = 1.0  # Lambda = noise / counts: CG without a preconditioner converges
+STREAM_INGEST_CASES = ((2048, 0.28), (8192, 0.155))
+STREAM_INGEST_START = 20_000
+STREAM_INGESTS = 6
 _T0 = time.monotonic()
 
 
@@ -1640,7 +1693,7 @@ def implicit_training_phases(ctx) -> None:
                 iparams, step_loss, (xt, yt), IMPLICIT_LOOP_ITERATIONS, TRAIN_BATCH, TRAIN_LR,
                 torch.Generator(device=device).manual_seed(LOOP_SEED), update_fn=update_fn,
                 trainable_mask=model.trainable_mask(iparams), monitor=monitor,
-                scalar_record_step=IMPLICIT_LOOP_RECORD_STEP, steps_per_call=IMPLICIT_MULTI_K)
+                scalar_record_step=IMPLICIT_LOOP_RECORD_STEP, steps_per_call=IMPLICIT_LOOP_K)
             ph.wait()
             loop_s = time.monotonic() - t0
             loop_launches = {"all": read_counts()}
@@ -1670,7 +1723,7 @@ def implicit_training_phases(ctx) -> None:
             require(not any(unconverged), f"train_loop_implicit: cg/unconverged {unconverged}")
             require(all(c for _, c in steps_of(loop_solves["all"])),
                     "train_loop_implicit: a solve did not converge")
-            require(spent["update_calls"] == IMPLICIT_LOOP_ITERATIONS // IMPLICIT_MULTI_K,
+            require(spent["update_calls"] == IMPLICIT_LOOP_ITERATIONS // IMPLICIT_LOOP_K,
                     f"train_loop_implicit: update_fn ran {spent['update_calls']} times")
             require(spent["training_steps"] == IMPLICIT_LOOP_ITERATIONS,
                     f"train_loop_implicit: {spent['training_steps']} steps")
@@ -1686,7 +1739,7 @@ def implicit_training_phases(ctx) -> None:
                         f"want {want}")
             steps_only_s = loop_s - spent["update_s"] - spent["callbacks_s"]
             emit({"phase": "train_loop_implicit", "use_pallas": True,
-                  "iterations": IMPLICIT_LOOP_ITERATIONS, "steps_per_call": IMPLICIT_MULTI_K,
+                  "iterations": IMPLICIT_LOOP_ITERATIONS, "steps_per_call": IMPLICIT_LOOP_K,
                   "record_step": IMPLICIT_LOOP_RECORD_STEP, "m_pad_after": int(m_loop),
                   "wall_s_run": loop_s, **spent, "steps_s": steps_only_s,
                   "steps_per_s_excluding_callbacks_and_update":
@@ -2528,7 +2581,7 @@ def baseline_phases(ctx) -> None:
       iterations from the same init (its loss <= scipy's + 1e-3 |scipy's|).
     * ``train_lpsvgp`` / ``train_pathwise``: ``LpSVGP`` and
       ``PathwiseClusterGP`` (S = 8, L = 512, its generator on the card),
-      float64, 100 adam(0.01) steps on batches of 2048 through
+      float64, 50 adam(0.01) steps on batches of 2048 through
       ``train_using_adam_and_update``: the mean loss of the last 10 steps
       below the first 10's.  No kernel runs in these three phases.
     * ``pathwise_cggp``: ``build_pathwise_posterior(solver="cg")`` on the
@@ -3124,7 +3177,7 @@ def serve_love_dense(ctx) -> None:
 
 def serve_love_implicit(ctx) -> dict:
     """``serve_love_implicit_pallas`` / ``serve_love_implicit_xla``: the
-    matrix-free serving workload (M = 9576 padded to 10240, 2 x 8192 points)
+    matrix-free serving workload (M = 9576 padded to 10240, 8192 points)
     through ``ImplicitCGGP.posterior(solver="lanczos")`` at rank
     ``LOVE_RANK``, through B3 and through the blocked route, and one float64
     LOVE cache on the blocked route.  Gates: B3's variances within 2x the
@@ -3628,8 +3681,7 @@ def cli_phases(ctx) -> None:
         # ImplicitCGGP's default cap (reported, not gated: its solves stop
         # at the cap; tests/jax_cli_reference.py as-typed runs both
         # packages' CLIs so on the CPU).
-        as_typed = {"as_typed": run("as_typed", big, ip_ctx_for(big, False, None)),
-                    "as_typed_check": run("as_typed_check", small,
+        as_typed = {"as_typed_check": run("as_typed_check", small,
                                           ip_ctx_for(small, False, None))}
         for name, r in (*routes.items(), *checks.items(), *as_typed.items()):
             want_launches = {"kuu_matvec": sum(k + 1 for k in r["steps"])
@@ -3790,6 +3842,589 @@ def cli_phases(ctx) -> None:
               "wall_s": [r["wall_s"] for r in runs], "serve_s": [r["serve_s"] for r in runs],
               "points_per_s": [r["points"] / r["serve_s"] for r in runs],
               "nvidia_smi": card_line, "phase_wall_s": ph.elapsed()})
+
+
+def covernet_streaming_phases(ctx) -> None:
+    """The device delta-net, fused in-training re-clustering and streaming
+    ingest (``select_covernet``, ``train_recluster_fused``,
+    ``stream_extend``, ``stream_ingest``, ``cli_covernet``): ``ctx`` carries
+    the card, the training split (numpy) and the ``kernels`` record, which
+    gains each kernel's ``recluster_*`` and ``stream_*`` counts."""
+    import cggp_tpu_torch.ops.cg as cg_module
+    import cggp_tpu_torch.ops.cg_implicit as cg_implicit_module
+    import cggp_tpu_torch.selection.covernet as covernet_module
+    from cggp_tpu_torch.models.cggp import CGGP
+    from cggp_tpu_torch.models.implicit import ImplicitCGGP
+    from cggp_tpu_torch.ops.cg import ConjugateGradient
+    from cggp_tpu_torch.ops.kernels import Matern32
+    from cggp_tpu_torch.ops.pallas_cg import pallas_cg_plan, pallas_cg_solve
+    from cggp_tpu_torch.ops.pallas_gram import gram_matvec, kuu_matvec
+    from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec
+    from cggp_tpu_torch.selection.covernet import (covernet_select,
+                                                   covernet_update_inducing_parameters,
+                                                   covernet_update_padded,
+                                                   make_device_recluster_fn)
+    from cggp_tpu_torch.training.batching import minibatch_index_iterator
+    from cggp_tpu_torch.training.optimize import (adam, make_adam_multi_step,
+                                                  make_streaming_ingest_fn)
+
+    device, card_line, kernels = ctx["device"], ctx["card_line"], ctx["kernels"]
+    x_np, y_np = ctx["data"]
+    xt = torch.as_tensor(x_np, dtype=torch.float32, device=device)
+    yt = torch.as_tensor(y_np, dtype=torch.float32, device=device)
+    n_train = xt.shape[0]
+    counted_kernels = (pallas_cg_solve, pallas_matvec, gram_matvec, kuu_matvec)
+    eps32 = float(np.finfo(np.float32).eps)
+    # Row -> index of the training split: the net's centres are its rows.
+    keys = {row.tobytes(): i for i, row in enumerate(xt.cpu().numpy())}
+
+    def zero_counts():
+        for counted in counted_kernels:
+            counted.launches = 0
+
+    def read_counts():
+        return {counted.__name__: counted.launches for counted in counted_kernels}
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    def metric64(distance, kp64):
+        """The selection metric in float64 and the scale of its fp32
+        rounding at each pair (the fp32 evaluation errs by a few ulps of
+        it)."""
+        if distance == "euclidean":
+            def fn(a, b):
+                a2, b2 = (a * a).sum(-1), (b * b).sum(-1)
+                return ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1), a2[:, None] + b2[None, :]
+            return fn
+        var = float(Matern32().variance(kp64))
+        ell = Matern32().lengthscales(kp64)
+
+        def fn(a, b):
+            k_ab = Matern32().K(kp64, a, b)
+            d2 = torch.clamp(2.0 * var - 2.0 * k_ab, min=0.0)
+            a2, b2 = ((a / ell) ** 2).sum(-1), ((b / ell) ** 2).sum(-1)
+            return d2, var * (2.0 + 3.0 * (a2[:, None] + b2[None, :]))
+        return fn
+
+    def check_scan(z_net, thresh, metric, block=4096):
+        """The fp32 net's scan decisions re-made in float64: point i is a
+        centre iff no earlier centre lies within the threshold.  A decision
+        may differ only where a pair's float64 metric lies within
+        ``COVERNET_BAND_ULPS`` ulps (of its rounding scale) of the
+        threshold.  Returns the counts of such near points, of flipped
+        decisions (all near), and of violations outside the band."""
+        x64 = xt.double()
+        z_host = z_net.cpu().numpy()
+        idx = torch.as_tensor([keys[row.tobytes()] for row in z_host], device=device)
+        require(bool((idx[1:] > idx[:-1]).all()), "covernet: centres not in scan order")
+        z64 = x64[idx]
+        is_center = torch.zeros(n_train, dtype=torch.bool, device=device)
+        is_center[idx] = True
+        near = flips = bad = 0
+        for s in range(0, n_train, block):
+            d2, scale = metric(x64[s:s + block], z64)
+            rows = torch.arange(s, min(s + block, n_train), device=device)
+            earlier = idx[None, :] < rows[:, None]
+            band = COVERNET_BAND_ULPS * eps32 * scale
+            within = (d2 <= thresh) & earlier
+            close = ((d2 - thresh).abs() <= band) & earlier
+            covered = within.any(dim=1)
+            is_near = close.any(dim=1)
+            wrong = covered == is_center[s:s + block]  # a centre covered, or a point not
+            near += int(is_near.sum())
+            flips += int((wrong & is_near).sum())
+            bad += int((wrong & ~is_near).sum())
+        return {"near_threshold_points": near, "flipped_decisions": flips,
+                "decisions_outside_band": bad}
+
+    def separation_and_coverage(z, thresh_sep, thresh_cov, metric, block=4096):
+        """Float64 minimum separation of the centres and maximum distance of
+        a training point to its nearest centre, in the selection metric,
+        with the pairs that fail inside the rounding band counted apart."""
+        x64, z64 = xt.double(), z.double()
+        sep_min, sep_near, sep_bad = math.inf, 0, 0
+        m = z64.shape[0]
+        for s in range(0, m, block):
+            d2, scale = metric(z64[s:s + block], z64)
+            own = torch.arange(s, min(s + block, m), device=device)
+            d2[torch.arange(own.numel(), device=device), own] = math.inf
+            band = COVERNET_BAND_ULPS * eps32 * scale
+            sep_min = min(sep_min, float(d2.min()))
+            fail = d2 <= thresh_sep
+            sep_near += int((fail & ((thresh_sep - d2) <= band)).sum())
+            sep_bad += int((fail & ((thresh_sep - d2) > band)).sum())
+        cov_max, cov_near, cov_bad = 0.0, 0, 0
+        for s in range(0, n_train, block):
+            d2, scale = metric(x64[s:s + block], z64)
+            best, j = d2.min(dim=1)
+            band = COVERNET_BAND_ULPS * eps32 * scale.gather(1, j[:, None])[:, 0]
+            cov_max = max(cov_max, float(best.max()))
+            fail = best > thresh_cov
+            cov_near += int((fail & ((best - thresh_cov) <= band)).sum())
+            cov_bad += int((fail & ((best - thresh_cov) > band)).sum())
+        return {"min_separation_metric": sep_min, "separation_pairs_in_band": sep_near,
+                "separation_pairs_failing": sep_bad, "max_cover_metric": cov_max,
+                "coverage_points_in_band": cov_near, "coverage_points_failing": cov_bad}
+
+    # -- select_covernet: the device net on the training split --------------
+    with Phase("select_covernet", 240) as ph:
+        kernel = Matern32()
+        kp0 = kernel.init_params(dtype=torch.float32, device=device)
+        kp64 = {k: v.double() for k, v in kp0.items()}
+        cases = []
+        for distance, res, lloyds in COVERNET_CASES:
+            kw = ({} if distance == "euclidean"
+                  else {"distance_type": distance, "kernel": kernel, "kernel_params": kp0})
+            kw64 = ({} if distance == "euclidean"
+                    else {"distance_type": distance, "kernel": kernel, "kernel_params": kp64})
+            thresh = res * res  # both metrics compare a squared distance here
+            runs = []
+            for _ in range(2):
+                ph.wait()
+                covernet_module.scan_counts.update(host_reads=0, mis_rounds=0)
+                t0 = time.monotonic()
+                out = covernet_update_inducing_parameters((xt, yt), res, lloyds=lloyds, **kw)
+                ph.wait()
+                runs.append({"out": out, "wall_s": time.monotonic() - t0,
+                             **covernet_module.scan_counts})
+            z, u, counts = runs[0]["out"]
+            require(all(torch.equal(a, b) for a, b in zip(runs[0]["out"], runs[1]["out"])),
+                    f"select_covernet {distance} {res}: two runs differ")
+            require(all(bool(torch.isfinite(t).all()) for t in (z, u, counts))
+                    and int(counts.sum()) == n_train,
+                    f"select_covernet {distance} {res}: counts sum {float(counts.sum())}")
+            # The scan's own net, fp32 and float64, then its decisions in float64.
+            covernet_module.scan_counts.update(host_reads=0, mis_rounds=0)
+            ph.wait()
+            t0 = time.monotonic()
+            z_net, m = covernet_select(xt, res, **kw)
+            ph.wait()
+            scan_s = time.monotonic() - t0
+            scan_reads = dict(covernet_module.scan_counts)
+            z_net64, m64 = covernet_select(xt.double(), res, **kw64)
+            metric = metric64(distance, kp64)
+            decisions = check_scan(z_net, thresh, metric)
+            require(decisions["decisions_outside_band"] == 0,
+                    f"select_covernet {distance} {res}: {decisions}")
+            same = m == m64 and torch.equal(z_net.double(), z_net64)
+            if decisions["flipped_decisions"] == 0:
+                require(same, f"select_covernet {distance} {res}: fp32 net (M = {m}) differs "
+                              f"from the float64 net (M = {m64}) with no decision in the band")
+            first_diff = None
+            if not same:
+                k = min(m, m64)
+                diff = (z_net[:k].double() != z_net64[:k]).any(dim=1).nonzero()
+                first_diff = int(diff[0]) if diff.numel() else k
+            guarantees = separation_and_coverage(z_net, thresh, thresh, metric)
+            require(guarantees["separation_pairs_failing"] == 0
+                    and guarantees["coverage_points_failing"] == 0,
+                    f"select_covernet {distance} {res}: the net's guarantees {guarantees}")
+            refined = None
+            if lloyds:
+                # Lloyd's keeps the separation; coverage relaxes to 2x.
+                refined = separation_and_coverage(z, thresh, 4.0 * thresh, metric)
+                require(refined["separation_pairs_failing"] == 0
+                        and refined["coverage_points_failing"] == 0,
+                        f"select_covernet {distance} {res}: after Lloyd's {refined}")
+            cases.append({"distance": distance, "resolution": res, "lloyds": lloyds,
+                          "m": int(z.shape[0]), "m_scan": m, "m_scan_fp64": m64,
+                          "update_wall_s": [r["wall_s"] for r in runs],
+                          "update_host_reads": runs[0]["host_reads"],
+                          "update_mis_rounds": runs[0]["mis_rounds"],
+                          "scan_wall_s": scan_s, "scan_host_reads": scan_reads["host_reads"],
+                          "scan_mis_rounds": scan_reads["mis_rounds"],
+                          "bitwise_repeat": True, "fp32_equals_fp64_net": same,
+                          "first_difference_at": first_diff, **decisions,
+                          "net_guarantees_fp64": guarantees, "after_lloyds_fp64": refined,
+                          "digest": digest(z, u, counts)})
+            del runs, z, u, counts, z_net, z_net64
+        emit({"phase": "select_covernet", "points": int(n_train), "cases": cases,
+              "band": f"{COVERNET_BAND_ULPS} fp32 ulps of the metric's rounding scale "
+                      "(|a|^2 + |b|^2; covariance: var (2 + 3 (|a/l|^2 + |b/l|^2)))",
+              "mis_rounds_per_read": covernet_module.MIS_ROUNDS_PER_READ,
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+
+    # -- train_recluster_fused: ImplicitCGGP re-selected in every K-step call
+    with Phase("train_recluster_fused", 300) as ph:
+        model = ImplicitCGGP(kernel=Matern32(), num_data=n_train, num_probes=TRAIN_PROBES,
+                             error_threshold=1e-5, relative_threshold=True,
+                             max_cg_iterations=256, block=FUSED_CAPACITY,
+                             precondition="pivchol", precond_rank=128, use_pallas=True)
+        # Every solve, forward or backward, through ops.cg_implicit.
+        solves = []
+        implicit_impl = cg_implicit_module._implicit_cg_impl
+
+        def recording(*args):
+            solution, stats = implicit_impl(*args)
+            solves.append(stats)
+            return solution, stats
+
+        cg_implicit_module._implicit_cg_impl = recording
+        kp0 = model.kernel.init_params(dtype=torch.float32, device=device)
+        z0, u0, c0, mask0 = covernet_update_padded(
+            xt, yt, FUSED_RES, FUSED_CAPACITY, distance_type="covariance",
+            kernel=model.kernel, kernel_params=kp0)
+        m0 = int(mask0.sum())  # the capacity itself where the net is truncated
+        params0 = model.init_params(z0[:m0], pseudo_u=u0[:m0], cluster_counts=c0[:m0],
+                                    capacity=FUSED_CAPACITY, dtype=torch.float32, device=device)
+        tmask = model.trainable_mask(params0)
+        recluster = make_device_recluster_fn(model, (xt, yt), FUSED_RES, FUSED_CAPACITY,
+                                             distance_type="covariance")
+        # The re-selection alone launches no kernel, and repeats bitwise.
+        zero_counts()
+        once, again = recluster(params0), recluster(params0)
+        ph.wait()
+        require(read_counts() == {k: 0 for k in read_counts()},
+                f"train_recluster_fused: the re-selection launched {read_counts()}")
+        require(all(torch.equal(once[k], again[k]) for k in
+                    ("inducing_points", "pseudo_u", "cluster_counts", "inducing_mask")),
+                "train_recluster_fused: two re-selections from one state differ")
+        chunks = minibatch_index_iterator(MULTI_BATCH_SEED, n_train, TRAIN_BATCH, MULTI_K,
+                                          device=device)
+        index_chunks = [next(chunks) for _ in range(FUSED_CHUNKS)]
+        variants = {}
+        for variant in ("none", "fused", "host"):
+            multi = make_adam_multi_step(model.training_loss, adam(TRAIN_LR), (xt, yt), tmask,
+                                         recluster_fn=recluster if variant == "fused" else None)
+            params, opt_state = params0, adam(TRAIN_LR).init(params0)
+            gen = torch.Generator(device=device).manual_seed(MULTI_PROBE_SEED)
+            record = {"chunk_wall_s": [], "recluster_s": 0.0, "m_real": [], "losses": [],
+                      "selection_digests": []}
+            solves.clear()
+            torch.cuda.reset_peak_memory_stats()
+            ph.wait()
+            zero_counts()
+            t_run = time.monotonic()
+            for idx in index_chunks:
+                t0 = time.monotonic()
+                if variant == "host":
+                    params = recluster(params)
+                    ph.wait()
+                    record["recluster_s"] += time.monotonic() - t0
+                    record["selection_digests"].append(
+                        digest(params["inducing_points"], params["pseudo_u"]))
+                entry = params
+                params, opt_state, losses = multi(params, opt_state, idx, gen)
+                ph.wait()
+                record["chunk_wall_s"].append(time.monotonic() - t0)
+                record["losses"].append([float(v) for v in losses])
+                record["m_real"].append(int(params["inducing_mask"].sum()))
+                if variant == "fused":
+                    # The selection the fused call made from its entry state.
+                    sel = recluster(entry)
+                    record["selection_digests"].append(
+                        digest(sel["inducing_points"], sel["pseudo_u"]))
+                    require(torch.equal(sel["inducing_points"], params["inducing_points"])
+                            and torch.equal(sel["cluster_counts"], params["cluster_counts"]),
+                            "train_recluster_fused: the chunk's selection is not its "
+                            "re-selection from the entry parameters")
+            run_s = time.monotonic() - t_run
+            launches = read_counts()
+            want = {"kuu_matvec": sum(int(st.steps) + 1 for st in solves), "gram_matvec": 0,
+                    "pallas_matvec": 0, "pallas_cg_solve": 0}
+            require(launches == want, f"train_recluster_fused {variant}: launches {launches}, "
+                                      f"want {want}")
+            require(all(math.isfinite(v) for c in record["losses"] for v in c),
+                    f"train_recluster_fused {variant}: non-finite losses")
+            truncated = [m for m in record["m_real"] if m >= FUSED_CAPACITY]
+            require(all(bool(torch.isfinite(v).all()) for sub in params.values()
+                        for v in (sub.values() if isinstance(sub, dict) else [sub])),
+                    f"train_recluster_fused {variant}: non-finite parameters")
+            steps = MULTI_K * FUSED_CHUNKS
+            fused_select_s = 0.0
+            if variant == "fused":
+                # The in-call re-selection timed alone from the chunks' entries.
+                t0 = time.monotonic()
+                recluster(params0)
+                ph.wait()
+                fused_select_s = (time.monotonic() - t0) * FUSED_CHUNKS
+            variants[variant] = {
+                **record, "steps": steps, "run_s": run_s,
+                "steps_per_s": steps / run_s,
+                "reselect_share": ((record["recluster_s"] or fused_select_s) / run_s
+                                   if variant != "none" else 0.0),
+                "launches": launches, "cg_solves": len(solves),
+                "cg_steps_max": max(int(st.steps) for st in solves),
+                "unconverged": sum(not bool(st.converged) for st in solves),
+                "truncated_chunks": len(truncated),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "final_digest": digest(params["inducing_points"], params["pseudo_u"],
+                                       params["kernel"]["lengthscales"])}
+        # The same entry parameters (the first chunk's) give the same selection
+        # fused and on the host; later chunks' in-call selections are held to
+        # re-selections from their own entries above.
+        require(variants["fused"]["selection_digests"][0]
+                == variants["host"]["selection_digests"][0],
+                "train_recluster_fused: fused and host selections differ from the same "
+                "parameters")
+        cg_implicit_module._implicit_cg_impl = implicit_impl
+        kernels["gram_matvec"]["recluster_fused_launches"] = \
+            variants["fused"]["launches"]["kuu_matvec"]
+        emit({"phase": "train_recluster_fused", "capacity": FUSED_CAPACITY, "m0": m0,
+              "resolution": FUSED_RES, "metric": "covariance", "k": MULTI_K,
+              "chunks": FUSED_CHUNKS, "batch": TRAIN_BATCH, "variants": variants,
+              "fused_equals_host_final": variants["fused"]["final_digest"]
+              == variants["host"]["final_digest"],
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        del params, opt_state, params0, once, again
+
+    # -- stream_extend: posterior_extend against the rebuild -----------------
+    def exact_serving(model, params, xq):
+        """A float64 Cholesky rebuild's means and variances, with each query's
+        ``|(Kzz + Lambda)^-1 k|`` and ``|k|`` and ``|u|`` for the stop rule's
+        allowance."""
+        p64 = to_device(params, device, torch.float64)
+        kp, z = p64["kernel"], p64["inducing_points"]
+        a = model.kernel.K(kp, z) + torch.diag(model.diag_variance(p64)[:, 0])
+        chol = torch.linalg.cholesky(a)
+        kmn = model.kernel.K(kp, z, xq.double())
+        w = torch.cholesky_solve(kmn, chol)
+        mean = kmn.T @ torch.cholesky_solve(p64["pseudo_u"], chol)
+        var = model.kernel.K_diag(kp, xq.double()) - (kmn * w).sum(dim=0)
+        return (mean[:, 0], var, torch.linalg.vector_norm(w, dim=0),
+                torch.linalg.vector_norm(kmn, dim=0), float(torch.linalg.vector_norm(
+                    p64["pseudo_u"])))
+
+    def stop_rule_residual(cg, rhs_norm):
+        """The largest residual norm the CG stop rule accepts for a
+        right-hand side of norm ``rhs_norm``."""
+        if cg.relative_threshold:
+            return math.sqrt(cg.error_threshold) * rhs_norm
+        return math.sqrt(2.0 * cg.error_threshold)
+
+    def timed(ph, fn):
+        ph.wait()
+        t0 = time.monotonic()
+        out = fn()
+        ph.wait()
+        return out, time.monotonic() - t0
+
+    with Phase("stream_extend", 240) as ph:
+        rng = np.random.RandomState(0)
+        cells = []
+        solves, undo = record_dense_solves(cg_module, operands=False)
+        try:
+            for m, impl in [*((m, "pallas") for m in STREAM_MS),
+                            (STREAM_MS[0], "pallas_resident")]:
+                dm = STREAM_DM
+                if impl == "pallas":  # the streaming production solve (exact factor, B1)
+                    cg = ConjugateGradient(1e-5, max_iterations=m + dm, relative_threshold=True,
+                                           matvec_impl="pallas")
+                    precondition, noise = "chol", 0.1
+                else:  # B2's eligibility: no preconditioner, an absolute threshold
+                    cg = ConjugateGradient(STREAM_B2_THRESHOLD, max_iterations=m + dm,
+                                           matvec_impl="pallas_resident")
+                    precondition, noise = None, STREAM_B2_NOISE
+                model = CGGP(kernel=Matern32(), conjugate_gradient=cg, num_data=100_000,
+                             num_probes=TRAIN_PROBES, precondition=precondition)
+                f32 = dict(dtype=torch.float32, device=device)
+                z1 = torch.as_tensor(rng.uniform(-2, 2, (m, 3)), **f32)
+                u1 = torch.as_tensor(rng.standard_normal((m, 1)), **f32)
+                c1 = torch.as_tensor(rng.uniform(4, 64, (m, 1)), **f32)
+                z_new = torch.as_tensor(rng.uniform(-2.4, 2.4, (dm, 3)), **f32)
+                drift = torch.as_tensor((rng.uniform(size=(m, 1)) < 0.25) * 2.0, **f32)
+                z2 = torch.cat([z1, z_new])
+                u_app = torch.cat([u1, torch.zeros((dm, 1), **f32)])
+                c_app = torch.cat([c1, torch.ones((dm, 1), **f32)])
+                c_drift = torch.cat([c1 + drift, torch.ones((dm, 1), **f32)])
+                xq = torch.as_tensor(rng.uniform(-2, 2, (STREAM_QUERIES, 3)), **f32)
+                params1 = model.init_params(z1, pseudo_u=u1, cluster_counts=c1,
+                                            noise_variance=noise, **f32)
+                params2d = model.assign_clusters(params1, z2, u_app, c_drift)
+                modes = [("cg", params2d)]
+                if impl == "pallas":
+                    modes.insert(0, ("chol", model.assign_clusters(params1, z2, u_app, c_app)))
+                for mode, params2 in modes:
+                    post1 = model.posterior(params1, solver=mode)
+                    solves.clear()
+                    zero_counts()
+                    extended, extend_s = timed(ph, lambda: model.posterior_extend(post1,
+                                                                                  params2))
+                    launches = read_counts()
+                    nu_solves = [(int(r["stats"].steps), bool(r["stats"].converged))
+                                 for r in solves]
+                    rebuilt, rebuild_s = timed(ph, lambda: model.posterior(params2,
+                                                                           solver=mode))
+                    served = [t[:, 0].double() for t in model.posterior_predict(extended, xq)]
+                    served_rebuild = [t[:, 0].double()
+                                      for t in model.posterior_predict(rebuilt, xq)]
+                    mean64, var64, w_norm, k_norm, u_norm = exact_serving(model, params2, xq)
+                    exact = (mean64, var64)
+                    # What the stop rule lets a CG cache serve: |k^T A^-1 r| <=
+                    # |A^-1 k| |r| for the nu solve (mean) and each query's
+                    # solve (variance), twice for fp32's rounding of the rule;
+                    # then fp32's own floor, twice the rebuild's largest gap.
+                    if mode == "cg":
+                        allowance = {"mean": 2.0 * w_norm * stop_rule_residual(cg, u_norm),
+                                     "var": 2.0 * w_norm * torch.stack([
+                                         torch.as_tensor(stop_rule_residual(cg, float(kn)))
+                                         for kn in k_norm]).to(w_norm)}
+                    else:
+                        allowance = {"mean": torch.zeros_like(w_norm),
+                                     "var": torch.zeros_like(w_norm)}
+                    gap, gap_rebuild, between, over = {}, {}, {}, {}
+                    for i, k in enumerate(("mean", "var")):
+                        err = (served[i] - exact[i]).abs()
+                        err_rebuild = (served_rebuild[i] - exact[i]).abs()
+                        gap[k] = float(err.max())
+                        gap_rebuild[k] = float(err_rebuild.max())
+                        between[k] = float((served[i] - served_rebuild[i]).abs().max())
+                        limit = allowance[k] + 2.0 * gap_rebuild[k]
+                        over[k] = float((err / limit).max())
+                        require(bool((err <= limit).all()),
+                                f"stream_extend M={m} {mode} {impl}: {k} beyond the stop "
+                                f"rule's allowance plus 2x the rebuild's gap {gap_rebuild[k]} "
+                                f"(worst ratio {over[k]})")
+                    require(all(math.isfinite(v) for v in (*gap.values(), *between.values())),
+                            f"stream_extend M={m} {mode}: non-finite serving")
+                    cell = {"m": m, "dm": dm, "mode": mode, "route": impl,
+                            "extend_s": extend_s, "rebuild_s": rebuild_s,
+                            "rebuild_over_extend": rebuild_s / extend_s,
+                            "gap_from_fp64": gap, "rebuild_gap_from_fp64": gap_rebuild,
+                            "extend_vs_rebuild": between, "worst_gap_over_limit": over,
+                            "allowance_max": {k: float(v.max()) for k, v in allowance.items()},
+                            "launches": launches,
+                            "nu_solves": nu_solves}
+                    if mode == "chol":
+                        require(extended.chol is not None and launches == {
+                            k: 0 for k in launches}, f"stream_extend M={m}: chol {launches}")
+                    elif impl == "pallas":
+                        want = sum(k + 1 for k, _ in nu_solves)
+                        require(len(nu_solves) == 1 and launches["pallas_matvec"] == want
+                                and launches["pallas_cg_solve"] == 0,
+                                f"stream_extend M={m}: B1 launches {launches}, the nu solve "
+                                f"{nu_solves}")
+                        require(isinstance(extended.precond_state, dict),
+                                "stream_extend: the exact factor was not border-extended")
+                    else:
+                        plan = pallas_cg_plan(1, m + dm, device)
+                        require(launches["pallas_cg_solve"] == 1 and launches["pallas_matvec"] == 0,
+                                f"stream_extend M={m} B2: launches {launches}")
+                        cell["b2_plan"] = plan
+                    cells.append(cell)
+                    del post1, extended, rebuilt, served, served_rebuild, exact
+        finally:
+            undo()
+        b1_launches = sum(c["launches"]["pallas_matvec"] for c in cells)
+        b2_launches = sum(c["launches"]["pallas_cg_solve"] for c in cells)
+        kernels["pallas_matvec"]["stream_extend_launches"] = b1_launches
+        kernels["pallas_cg_solve"]["stream_extend_launches"] = b2_launches
+        emit({"phase": "stream_extend", "queries": STREAM_QUERIES, "cells": cells,
+              "tolerance": "each point's served mean and variance within the CG stop rule's "
+                           "allowance 2 |A^-1 k| r_max (none for a Cholesky cache) plus 2x the "
+                           "fp32 rebuild's largest gap from a float64 Cholesky rebuild",
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+
+    # -- stream_ingest: make_streaming_ingest_fn at a fixed capacity ---------
+    with Phase("stream_ingest", 240) as ph:
+        rows = []
+        digests = {}
+        for cap, res in STREAM_INGEST_CASES:
+            rng = np.random.RandomState(0)
+            model = CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(
+                1e-5, max_iterations=cap, relative_threshold=True, matvec_impl="pallas"),
+                num_data=100_000, num_probes=TRAIN_PROBES, precondition="chol")
+            f32 = dict(dtype=torch.float32, device=device)
+            x0 = torch.as_tensor(rng.uniform(-2, 2, (STREAM_INGEST_START, 3)), **f32)
+            z, u, c = covernet_update_inducing_parameters((x0, torch.sin(3.0 * x0[:, :1])), res,
+                                                          lloyds=0)
+            m0 = int(z.shape[0])
+            require(m0 <= cap - 64, f"stream_ingest: initial net {m0} too close to {cap}")
+            params0 = model.init_params(z, pseudo_u=u, cluster_counts=c, capacity=cap, **f32)
+            blocks = []
+            for _ in range(STREAM_INGESTS):
+                xb = torch.as_tensor(rng.uniform(-2.2, 2.2, (STREAM_QUERIES, 3)), **f32)
+                blocks.append((xb, torch.sin(3.0 * xb[:, :1])))
+            for solver in ("chol", "cg"):
+                ingest = make_streaming_ingest_fn(model, res, posterior_solver=solver)
+                finals = []
+                for repeat in range(2):  # the second run must repeat the first bitwise
+                    params, walls, masks, launches = params0, [], [], []
+                    for xb, yb in blocks:
+                        zero_counts()
+                        (params, post), wall = timed(ph, lambda: ingest(params, xb, yb))
+                        launches.append(read_counts()["pallas_matvec"])
+                        walls.append(wall)
+                        masks.append(int(params["inducing_mask"].sum()))
+                        require(params["inducing_points"].shape == (cap, 3),
+                                f"stream_ingest: Z {tuple(params['inducing_points'].shape)}")
+                        if repeat == 0:
+                            ref = model.posterior(params, solver=solver)
+                            same = torch.equal(post.nu, ref.nu) and (
+                                torch.equal(post.chol, ref.chol) if solver == "chol" else
+                                torch.equal(post.precond_state["chol_w"],
+                                            ref.precond_state["chol_w"]))
+                            require(same, f"stream_ingest cap={cap} {solver}: the ingest's "
+                                          "cache differs from posterior(new params)")
+                    finals.append(digest(params["inducing_points"], params["pseudo_u"],
+                                         params["cluster_counts"], post.nu))
+                    if repeat == 0:
+                        require(masks == sorted(masks) and m0 < masks[-1] <= cap,
+                                f"stream_ingest cap={cap}: mask sums {masks}")
+                        require((sum(launches) > 0) == (solver == "cg"),
+                                f"stream_ingest cap={cap} {solver}: B1 launches {launches}")
+                        row = {"capacity": cap, "resolution": res, "solver": solver, "m0": m0,
+                               "mask_sums": masks, "truncated": masks[-1] >= cap,
+                               "ingest_s": walls, "b1_launches": launches}
+                require(finals[0] == finals[1], f"stream_ingest cap={cap} {solver}: two runs "
+                                                "differ")
+                row["bitwise_repeat"] = True
+                digests[f"{cap}/{solver}"] = finals[0]
+                rows.append(row)
+        kernels["pallas_matvec"]["stream_ingest_launches"] = sum(
+            sum(r["b1_launches"]) for r in rows)
+        emit({"phase": "stream_ingest", "ingest_points": STREAM_QUERIES,
+              "start_points": STREAM_INGEST_START, "ingests": STREAM_INGESTS, "rows": rows,
+              "digests": digests, "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+
+    # -- cli_covernet: the covernet group and --recluster fused as processes -
+    out = ROOT / "chiprun_out" / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    with Phase("cli_covernet", 200) as ph:
+        if not (out / "gpr" / "params.npz").is_file():
+            run_cli(ph, "gpr_for_covernet", ["gpr", "-d", CLI_DATASET, "-s", 0, "-k", "matern32",
+                                             "-n", CLI_GPR_ITERATIONS, "-l", out / "gpr"], out)
+        uci = run_cli(ph, "covernet_uci", [
+            "uci", "-mc", "cdgp", "-p", "fp32", "-j", "1e-6", "-c", out / "gpr", "covernet",
+            "-s", 0.35, "compute-metrics", "-l", out / "covernet_uci"], out)
+        res = json.loads((out / "covernet_uci" / "results.json").read_text())
+        require(list(res) == JAX_UCI_RESULT_KEYS and res["clustering_type"] == "covernet",
+                f"cli_covernet: results.json {list(res)}")
+        require(all(math.isfinite(res[k]) for k in ("test/rmse", "test/nlpd", "train/elbo",
+                                                    "condition_number")),
+                f"cli_covernet: non-finite metrics {res}")
+        train = run_cli(ph, "covernet_fused_train", [
+            "train", "-d", CLI_DATASET, "-s", 0, "-p", "fp32", "-l", out / "covernet_fused",
+            "train-cggp-adam", "-n", CLI_TRAIN_STEPS, "-b", 2048, "-c", "covernet",
+            "--spatial-resolution", 0.35, "-d", "euclidean", "--recluster", "fused",
+            "--steps-per-call", CLI_TRAIN_STEPS, "-P", "chol", "--relative-threshold",
+            "-e", "1e-5", "-r", CLI_TRAIN_STEPS, "--no-tensorboard"], out)
+        info = json.loads((out / "covernet_fused" / "info.json").read_text())
+        with np.load(out / "covernet_fused" / "params.npz") as trained:
+            flat = {k: trained[k] for k in trained.files}
+        m_real = np.load(out / "covernet_fused" / "m_real.logs.npy", allow_pickle=True)
+        require(info["recluster"] == "fused" and "capacity" in info,
+                f"cli_covernet: info.json {info}")
+        require(all(np.isfinite(v).all() for v in flat.values()),
+                "cli_covernet: non-finite trained parameters")
+        mask_sum = float(flat["inducing_mask"].sum())
+        require(0 < mask_sum < info["capacity"]
+                and flat["inducing_points"].shape[0] == info["capacity"],
+                f"cli_covernet: mask sum {mask_sum}, capacity {info['capacity']}")
+        emit({"phase": "cli_covernet", "uci_wall_s": uci["wall_s"],
+              "uci_split_s": {t: uci.get(t) for t in ("selection_s", "metrics_s")},
+              "uci_m": res["num_inducing_points"],
+              "uci_results": {k: res[k] for k in ("test/rmse", "test/nlpd", "train/elbo",
+                                                  "condition_number")},
+              "train_wall_s": train["wall_s"], "capacity": info["capacity"],
+              "m_real": [float(e["selection/m_real"]) for e in m_real],
+              "final_mask_sum": mask_sum, "nvidia_smi": card_line,
+              "phase_wall_s": ph.elapsed()})
 
 
 def main() -> int:
@@ -4738,6 +5373,10 @@ def main() -> int:
     # -- the experiment CLI: the paper's pipeline, B3 under compute-metrics ---
     cli_phases({"card_line": card_line, "gram_record": kernels["gram_matvec"]})
 
+    # -- the device delta-net, fused re-clustering and streaming ingest -------
+    covernet_streaming_phases({"device": device, "card_line": card_line, "kernels": kernels,
+                               "data": (x_train, y_train)})
+
     sources = {"pallas_matvec": ("cggp_tpu_torch/csrc/pallas_matvec.cu",
                                  "cggp_tpu/ops/pallas_matvec.py:65"),
                "pallas_cg_solve": ("cggp_tpu_torch/csrc/pallas_cg.cu",
@@ -4752,7 +5391,8 @@ def main() -> int:
          "library_ms": kernels[name]["library_ms"],
          **{k: v for k, v in kernels[name].items()
             if k.startswith(("train_", "multi_", "loop_", "implicit_", "itergpr_", "love_",
-                             "solver_family_", "pathwise_", "lbfgs_", "cli_"))}}
+                             "solver_family_", "pathwise_", "lbfgs_", "cli_", "recluster_",
+                             "stream_"))}}
         for name in ("pallas_matvec", "pallas_cg_solve", "gram_matvec")]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,12 +14,14 @@ from cggp_tpu.data import synthetic as jax_synthetic
 from cggp_tpu.models.cggp import CGGP as JaxCGGP
 from cggp_tpu.ops.cg import ConjugateGradient as JaxConjugateGradient
 from cggp_tpu.ops.kernels import Matern32 as JaxMatern32
+from cggp_tpu.selection.covernet import make_device_recluster_fn as jax_recluster_fn
 from cggp_tpu.training.optimize import predict_in_batches as jax_predict_in_batches
 from cggp_tpu.utils.store import save_config_dir
 from cggp_tpu_torch.data import synthetic
 from cggp_tpu_torch.models.cggp import CGGP
 from cggp_tpu_torch.ops.cg import ConjugateGradient
 from cggp_tpu_torch.ops.kernels import Matern32
+from cggp_tpu_torch.selection.covernet import make_device_recluster_fn
 from cggp_tpu_torch.training.optimize import adam, make_adam_multi_step, predict_in_batches
 from cggp_tpu_torch.utils.store import load_config_dir, params_from_numpy
 
@@ -169,18 +171,40 @@ def test_unported_switches_raise(call):
             assert g.shape == (N_QUERY, 1)
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-8)
         return
-    with pytest.raises(NotImplementedError, match="item 1[02]"):
-        if call == "capacity":
-            # Capacity padding and the host re-clustering swaps are ported;
-            # the fixed-capacity re-clustering inside a K-step chunk (the
-            # device delta-net's recluster_fn) is not.
-            padded = tmodel.init_params(tparams["inducing_points"], capacity=64, device="cpu")
-            make_adam_multi_step(tmodel.training_loss, adam(0.01), (x, x[:, :1]),
-                                 recluster_fn=lambda p: tmodel.assign_clusters_device(
-                                     p, padded["inducing_points"], padded["pseudo_u"],
-                                     padded["cluster_counts"], padded["inducing_mask"]))
-        else:
-            predict_in_batches(tmodel, tparams, x, mesh=object(), posterior_solver="cg")
+    if call == "capacity":
+        # Ported now (recluster_fn raised naming item 10 here before): the
+        # fixed-capacity device re-clustering inside a K-step call swaps in
+        # JAX's selection, and the re-clustered padded model serves as
+        # JAX's at CG64's 1e-8.
+        jmodel, jparams, tmodel, tparams, _ = _models("xla", CG64, jnp.float64)
+        (xs, ys), _ = jax_synthetic(n=600, dim=3, seed=0)
+        jpad = jmodel.init_params(jparams["inducing_points"], pseudo_u=jparams["pseudo_u"],
+                                  cluster_counts=jparams["cluster_counts"], capacity=128,
+                                  noise_variance=0.5, dtype=jnp.float64)
+        tpad = params_from_numpy(jpad, device="cpu")
+        jre = jax_recluster_fn(jmodel, (jnp.asarray(xs), jnp.asarray(ys)), 0.8, 128)
+        calls = []
+
+        def recluster(p):
+            calls.append(1)
+            return make_device_recluster_fn(tmodel, (torch.as_tensor(xs), torch.as_tensor(ys)),
+                                            0.8, 128)(p)
+
+        step = make_adam_multi_step(lambda p, b, k: tmodel.training_loss(p, b, k), adam(0.0),
+                                    (torch.as_tensor(xs), torch.as_tensor(ys)),
+                                    tmodel.trainable_mask(tpad), recluster_fn=recluster)
+        tout, _, losses = step(tpad, adam(0.0).init(tpad),
+                               torch.zeros((1, 8), dtype=torch.int64), torch.Generator())
+        jout = jre(jpad)
+        assert calls == [1] and bool(torch.isfinite(losses).all())
+        assert 40 < int(tout["inducing_mask"].sum()) < 128
+        got = predict_in_batches(tmodel, tout, x, posterior_solver="cg")
+        want = jax_predict_in_batches(jmodel, jout, jnp.asarray(xq), posterior_solver="cg")
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-8)
+        return
+    with pytest.raises(NotImplementedError, match="item 12"):
+        predict_in_batches(tmodel, tparams, x, mesh=object(), posterior_solver="cg")
     with pytest.raises(ValueError):
         tmodel.posterior(tparams, solver="cholesky")
 

@@ -24,6 +24,8 @@ What is compared, and why:
 * ``condition-wasserstein`` draws its data: the port's ``uniform_draw``
   and ``normal_draw`` return JAX's draws of ``split(PRNGKey(seed), 3)``, and
   the CSVs then read back equal under pandas (1e-6 relative).
+* ``geospatial ... covernet ... train-adam``: the same layout and the same
+  selected inducing points as JAX's.
 * ``geospatial-csv`` writes the file pandas writes; ``uci-plot`` writes the
   same file name (skipped without matplotlib).
 """
@@ -125,6 +127,21 @@ def test_geospatial_train_adam_writes_what_jax_writes(tmp_path):
             got = np.load(tmp_path / "port" / f"{split}_{what}.npy")
             want = np.load(tmp_path / "jax" / f"{split}_{what}.npy")
             assert got.shape == want.shape and np.all(np.isfinite(got))
+
+
+def test_geospatial_covernet_train_adam_writes_what_jax_writes(tmp_path):
+    # The device net in geospatial's loop: a draw-free selection, so the
+    # inducing state before training equals JAX's (params.npz after the
+    # run holds the trained kernel, so only its layout is compared).
+    head = ["geospatial", "-d", DATA, "-mc", "cdgp", "-s", 0, "-e", "1e-10"]
+    tail = ["covernet", "-s", 0.5, "train-adam", "-n", 2, "-b", 64, "-r", 1,
+            "--no-tensorboard"]
+    run_jax([*head, "-l", tmp_path / "jax", *tail])
+    run_port([*head, "-l", tmp_path / "port", *tail])
+    _assert_same_layout(tmp_path / "port", tmp_path / "jax", logs=("metrics", "params", "train"))
+    got, want = npz(tmp_path / "port" / "params.npz"), npz(tmp_path / "jax" / "params.npz")
+    np.testing.assert_allclose(got["inducing_points"], want["inducing_points"], rtol=0,
+                               atol=1e-12)
 
 
 @pytest.fixture(scope="module")

@@ -5,9 +5,11 @@
   the same options (strings, flag pairs, defaults, choices, required-ness,
   ``multiple``) and positional arguments; the port's one extra option is
   the root's ``--device``.
-* Refusals and exit codes: a usage error exits 2 in both packages; the
-  ``covernet`` group, ``--recluster fused`` and ``--num-devices`` raise
-  ``NotImplementedError`` naming ROADMAP items 10 and 12; without
+* Refusals and exit codes: a usage error exits 2 in both packages;
+  ``--num-devices`` raises ``NotImplementedError`` naming ROADMAP item 12,
+  while the ``covernet`` group, ``--recluster fused`` and
+  ``condition-wasserstein --selection covernet`` write what JAX's CLI
+  writes (the selection and the inducing state to 1e-12); without
   ``--device cpu`` and without a card the port fails with
   ``resolve_device``'s message and runs nothing on the CPU.
 * ``sweep``: the expansion of every checked-in ``configs/*.toml`` is JAX's
@@ -22,6 +24,7 @@ import json
 from pathlib import Path
 
 import click
+import jax
 import numpy as np
 import pandas as pd
 import pytest
@@ -178,26 +181,85 @@ def test_a_command_error_exits_1(tmp_path, monkeypatch):
 
 
 NOT_PORTED = [
-    (["uci", "-mc", "cdgp", "-p", "fp64", "-j", "1e-6", "-c", "cfg", "covernet", "-s", "0.5",
-      "compute-metrics"], "item 10"),
+    (["uci", "-mc", "cdgp", "-p", "fp64", "-j", "1e-6", "-P", "chol", "-e", "1e-20", "-c", "cfg",
+      "covernet", "-s", "0.5", "compute-metrics"], "item 10"),
     (["train", "-d", "synthetic:n=120:dim=2", "train-cggp-adam", "-n", "1", "-b", "16", "-c",
-      "covernet", "--recluster", "fused", "--steps-per-call", "2"], "item 10"),
+      "covernet", "--recluster", "fused", "--steps-per-call", "2", "--no-tensorboard"],
+     "item 10"),
     (["train", "-d", "synthetic:n=120:dim=2", "train-cggp-adam", "-n", "1", "-b", "16",
       "--num-devices", "2"], "item 12"),
-    (["condition-wasserstein", "-d", "1", "-r", "1.0", "-n", "20", "--selection", "covernet"],
-     "item 10"),
+    (["condition-wasserstein", "-d", "1", "-r", "1.0", "-r", "0.5", "-n", "20", "--selection",
+      "covernet"], "item 10"),
 ]
+
+
+def _patch_condition_wasserstein_draws(monkeypatch, num_data, dim, seed=0):
+    """The port's draws of ``condition-wasserstein`` return JAX's from
+    ``split(PRNGKey(seed), 3)``."""
+    import cggp_tpu_torch.cli.condition_wasserstein as tcw
+
+    key_x, key_f, key_probe = jax.random.split(jax.random.PRNGKey(seed), 3)
+    x = np.asarray(jax.random.uniform(key_x, (num_data, dim), dtype=np.float64, minval=-1.0,
+                                      maxval=1.0))
+    normals = [np.asarray(jax.random.normal(k, (num_data, 1), dtype=np.float64))
+               for k in (key_f, key_probe)]
+    monkeypatch.setattr(tcw, "uniform_draw",
+                        lambda gen, shape, dtype: torch.as_tensor(x.copy(), dtype=dtype))
+    monkeypatch.setattr(tcw, "normal_draw",
+                        lambda gen, shape, dtype: torch.as_tensor(normals.pop(0).copy(),
+                                                                  dtype=dtype))
 
 
 @pytest.mark.parametrize("args,item", NOT_PORTED, ids=["uci_covernet", "train_fused",
                                                        "train_num_devices", "cw_covernet"])
 def test_unported_paths_raise_naming_their_roadmap_item(args, item, tmp_path, monkeypatch):
+    # --num-devices still raises naming item 12.  The item-10 paths (the
+    # covernet group, --recluster fused, --selection covernet) raised here
+    # before and are ported now: each writes what JAX's CLI writes.
     monkeypatch.chdir(tmp_path)
     if "cfg" in args:
         run_port(["gpr", "-d", "synthetic:n=120:dim=2", "-n", 1, "-l", tmp_path / "cfg"])
-    with pytest.raises(NotImplementedError, match=item):
-        port_main(["--device", "cpu", *args, *(["-l", str(tmp_path / "out")]
-                                                if args[-1] == "compute-metrics" else [])])
+    if item == "item 12":
+        with pytest.raises(NotImplementedError, match=item):
+            port_main(["--device", "cpu", *args])
+        return
+    if args[0] == "condition-wasserstein":
+        _patch_condition_wasserstein_draws(monkeypatch, 20, 1)
+    for run, name in ((run_jax, "jax"), (run_port, "port")):
+        logdir = ["-l", tmp_path / name]
+        # train's -l belongs to the group, before the command.
+        run([*args[:3], *logdir, *args[3:]] if args[0] == "train" else [*args, *logdir])
+    if args[0] == "uci":
+        got, want = (json.loads(Path(tmp_path, d, "results.json").read_text())
+                     for d in ("port", "jax"))
+        assert got["clustering_type"] == "covernet" and got["num_inducing_points"] > 8
+        assert list(got) == list(want)
+        for key in want:
+            if key in ("config_dir",):
+                continue
+            if key in ("test/rmse", "test/nlpd", "condition_number", "eig_min", "eig_max"):
+                assert abs(got[key] - want[key]) <= 1e-6 * abs(want[key]), key
+            elif key == "train/elbo":  # trace probes from each package's generator
+                assert abs(got[key] - want[key]) <= 1e-2 * abs(want[key]), key
+            else:
+                assert got[key] == want[key], key
+    elif args[0] == "train":
+        info = {d: {k: v for k, v in json.loads(Path(tmp_path, d, "info.json").read_text())
+                    .items() if k != "logdir"} for d in ("port", "jax")}
+        assert info["port"] == info["jax"] and info["port"]["recluster"] == "fused"
+        got, want = (dict(np.load(Path(tmp_path, d, "params.npz"))) for d in ("port", "jax"))
+        assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
+        # One K = 2 call: the selection at its top reads the initial kernel
+        # parameters, so the inducing state is JAX's.
+        for name in want:
+            if "kernel" not in name and "likelihood" not in name:
+                np.testing.assert_allclose(got[name], want[name], rtol=1e-12, atol=1e-12,
+                                           err_msg=name)
+        assert got["inducing_mask"].sum() < info["port"]["capacity"]
+    else:
+        name = "condition_wasserstein_dim1_covernet.csv"
+        pd.testing.assert_frame_equal(pd.read_csv(tmp_path / "port" / name),
+                                      pd.read_csv(tmp_path / "jax" / name), rtol=1e-6)
 
 
 def test_predict_num_devices_raises_naming_item_12(tmp_path, monkeypatch):

@@ -14,6 +14,7 @@ import torch
 import cggp_tpu_torch.selection.points as tpoints
 from cggp_tpu.models.cggp import CGGP as JaxCGGP
 from cggp_tpu.models.clustergp import ClusterGP as JaxClusterGP
+from cggp_tpu import selection as jax_selection
 from cggp_tpu.ops import kernels as jkernels
 from cggp_tpu.ops.cg import ConjugateGradient as JaxConjugateGradient
 from cggp_tpu.selection import (covertree_update_inducing_parameters as jax_covertree_update,
@@ -288,6 +289,15 @@ def test_index_blocks_match_jax_bit_for_bit():
 
 
 def test_covernet_names_raise_naming_their_item():
-    for name in [n for n in selection.__all__ if n.startswith("covernet")]:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            getattr(selection, name)()
+    # Ported now (each name raised NotImplementedError naming ROADMAP item
+    # 10 here before): every covernet name of the package's exports is
+    # JAX's, and the update of a small split gives JAX's (Z, u, counts).
+    names = [n for n in selection.__all__ if n.startswith("covernet")]
+    assert names == [n for n in jax_selection.__all__ if n.startswith("covernet")]
+    x, y = _data(seed=8, n=300)
+    got = selection.covernet_update_inducing_parameters((_t(x), _t(y)), 0.6, block_size=64)
+    want = jax_selection.covernet_update_inducing_parameters(
+        (jnp.asarray(x), jnp.asarray(y)), 0.6, block_size=64)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, atol=1e-12)

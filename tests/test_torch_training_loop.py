@@ -391,7 +391,7 @@ def test_cg_stats_warning_and_no_false_positive_at_cap(probes):
 
 @pytest.mark.parametrize("kwargs, error, match", [
     ({"mesh": object()}, NotImplementedError, "item 12"),
-    ({"recluster_fn": lambda p: p, "steps_per_call": 2}, NotImplementedError, "item 10"),
+    ({"recluster_fn": lambda p: p}, ValueError, "requires steps_per_call > 1"),
     ({"precond_fn": lambda p: ()}, ValueError, "requires steps_per_call > 1"),
     ({"precond_resolver": lambda p: "chol"}, ValueError, "requires loss_fn_for_mode"),
     ({"precond_resolver": lambda p: "chol", "loss_fn_for_mode": lambda m: None,
@@ -401,19 +401,42 @@ def test_cg_stats_warning_and_no_false_positive_at_cap(probes):
 ], ids=["mesh", "recluster_fn", "precond_fn_k1", "resolver_no_factory", "resolver_frozen",
         "resolve_every"])
 def test_trainer_refusals(kwargs, error, match):
-    # JAX raises the same ValueErrors (same checks, same order); mesh and
-    # recluster_fn are ported refusals naming their ROADMAP items.
+    # JAX raises the same ValueErrors (same checks, same order); mesh is a
+    # ported refusal naming its ROADMAP item.  recluster_fn is ported (it
+    # raised naming item 10 here before): its checks are JAX's, and a K-step
+    # call runs it once, at the top, before the steps.
     _, tmodel = _model_pair()
     jmodel, _ = _model_pair()
-    _, tparams = _params(jmodel)
+    jparams, tparams = _params(jmodel)
     with pytest.raises(error, match=match):
         train_using_adam_and_update(tparams, tmodel.training_loss,
                                     (torch.as_tensor(X), torch.as_tensor(Y)), 2, B, 0.01,
                                     torch.Generator(), **kwargs)
-    if error is NotImplementedError and "recluster_fn" in kwargs:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            make_adam_multi_step(tmodel.training_loss, adam(0.01), (X, Y),
-                                 recluster_fn=lambda p: p)
+    if "recluster_fn" in kwargs:
+        with pytest.raises(ValueError, match=match):
+            joptimize.train_using_adam_and_update(
+                jparams, jmodel.training_loss, (jnp.asarray(X), jnp.asarray(Y)), 2, B, 0.01,
+                jax.random.PRNGKey(0), **kwargs)
+        both = dict(recluster_fn=lambda p: p, steps_per_call=2, update_fn=lambda p: p)
+        for trainer, params, data, key in (
+                (train_using_adam_and_update, tparams, (torch.as_tensor(X), torch.as_tensor(Y)),
+                 torch.Generator()),
+                (joptimize.train_using_adam_and_update, jparams,
+                 (jnp.asarray(X), jnp.asarray(Y)), jax.random.PRNGKey(0))):
+            with pytest.raises(ValueError, match="not both"):
+                trainer(params, tmodel.training_loss, data, 2, B, 0.01, key, **both)
+        calls = []
+
+        def recluster(p):
+            calls.append(p)
+            return p
+
+        step = make_adam_multi_step(lambda p, b, k: tmodel.training_loss(p, b, k), adam(0.01),
+                                    (torch.as_tensor(X), torch.as_tensor(Y)),
+                                    recluster_fn=recluster)
+        step(tparams, adam(0.01).init(tparams), torch.zeros((2, B), dtype=torch.int64),
+             torch.Generator())
+        assert len(calls) == 1 and calls[0] is tparams
 
 
 @pytest.mark.parametrize("iterations, k, window, traced", [
