@@ -117,7 +117,7 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             i64 = ctypes.c_longlong
-            lib.cggp_pallas_matvec.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr]
+            lib.cggp_pallas_matvec.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr]
             lib.cggp_pallas_matvec.restype = i32
             lib.cggp_pallas_matvec_scratch_words.argtypes = [i32, i32]
             lib.cggp_pallas_matvec_scratch_words.restype = ctypes.c_longlong

@@ -65,11 +65,6 @@ ModelChoices = list(MODEL_NAMES)
 precision_names = {np.float32: "fp32", np.float64: "fp64"}
 _TORCH_DTYPES = {np.float32: torch.float32, np.float64: torch.float64}
 
-PARALLEL_NOT_PORTED = (
-    "--num-devices (sharded models and data-parallel serving) arrives with a later slice "
-    "of the port (ROADMAP Queue A item 12)")
-
-
 # ---------------------------------------------------------------------------
 # Errors and output (click's exceptions and echo)
 # ---------------------------------------------------------------------------
@@ -760,14 +755,12 @@ def dump_posterior_arrays(model, params, train_data, x, batch_size: int,
     solve-free cached mean."""
     from cggp_tpu_torch.training.optimize import predict_in_batches
 
-    if mesh is not None:
-        raise NotImplementedError(PARALLEL_NOT_PORTED)
     needs_data = "data" in inspect.signature(model.predict_f).parameters
     with torch.no_grad():
         mean, var = predict_in_batches(
             model, params, x, batch_size=batch_size,
             train_data=train_data if needs_data else None,
-            mean_only=mean_only, posterior_solver=posterior_solver,
+            mean_only=mean_only, posterior_solver=posterior_solver, mesh=mesh,
             posterior=posterior, chunk_iterations=chunk_iterations,
         )
     return _host(mean), None if var is None else _host(var)

@@ -9,8 +9,9 @@ the JAX package's files: a cache on disk is loaded (its fingerprint must
 match these parameters), else it is built once, checked finite (an
 auto-picked Cholesky cache that is not falls back to CG) and saved.
 ``--chunk-iterations`` builds the cache in host-driven chunks.
-``--num-devices`` (data-parallel serving, ROADMAP Queue A item 12) is not
-ported yet and raises.
+``--num-devices N`` serves data-parallel over the N-rank world (``torchrun
+--nproc-per-node N``; on one card N = 1; another N raises ``make_mesh``'s
+``ValueError``): each rank serves its rows of every batch.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cggp_tpu_torch.cli.cli_utils import (PARALLEL_NOT_PORTED, Command, CommandError, Context,
+from cggp_tpu_torch.cli.cli_utils import (Command, CommandError, Context,
                                           DatasetType, LogdirPath, create_model,
                                           default_kernel_fn, dump_posterior_arrays, echo,
                                           to_device_bundle)
@@ -132,8 +133,12 @@ def run(ctx: Context, config_dir, logdir, model_class, test_batch_size, error_th
              "will be identically zero. Pass a trained cdgp/geospatial config dir for "
              "non-trivial means.", err=True)
 
+    mesh = None
     if num_devices is not None:
-        raise NotImplementedError(PARALLEL_NOT_PORTED)
+        from cggp_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(num_devices, device=device)
+        echo(f"data-parallel serving over {num_devices} devices")
 
     post = None
     cache_on_disk = posterior_dir is not None and Path(posterior_dir, "posterior.json").exists()
@@ -155,7 +160,7 @@ def run(ctx: Context, config_dir, logdir, model_class, test_batch_size, error_th
     for split_name, split in (("train", dataset.train), ("test", dataset.test)):
         mean, var = dump_posterior_arrays(
             model, params, dataset.train, split[0], test_batch_size,
-            mean_only=mean_only, posterior_solver=serving_solver,
+            mean_only=mean_only, posterior_solver=serving_solver, mesh=mesh,
             posterior=post, chunk_iterations=chunk_iterations,
         )
         np.save(Path(logdir, f"{split_name}_mean.npy"), mean)
@@ -250,8 +255,8 @@ def make_command() -> Command:
                help="Persist/reuse the serving cache: loads posterior.{npz,json} from this "
                     "dir if present (the build is skipped), else builds once and saves it.")
     cmd.option("--num-devices", type=int, default=None,
-               help="Serve data-parallel over an N-device mesh (ROADMAP Queue A item 12, not "
-                    "ported yet).")
+               help="Serve data-parallel over the N-rank world (start N ranks with torchrun "
+                    "--nproc-per-node N), the posterior cache replicated.")
     cmd.option("--chunk-iterations", type=int, default=0,
                help="> 0: build the serving cache in host-driven restarted-CG chunks (models "
                     "with posterior_chunked, e.g. gpr-iter).")

@@ -10,9 +10,11 @@ become ``torch.Generator`` objects seeded ``-s`` on the run's device.
 
 ``--recluster fused`` (with ``-c covernet``) pins the inducing dimension
 to a capacity and re-selects by the device net at the top of every K-step
-call (``make_device_recluster_fn``).  Not ported yet: ``--num-devices``
-(the sharded model, ROADMAP Queue A item 12) raises
-``NotImplementedError`` after the usage checks the JAX package makes.
+call (``make_device_recluster_fn``).  ``--num-devices N`` trains
+``ShardedCGGP`` over the N-rank world (``torchrun --nproc-per-node N``, one
+card a rank; on one card N = 1; another N raises ``make_mesh``'s
+``ValueError``), with the hybrid data-parallel step at one step a call when
+the batch divides N.
 """
 
 from __future__ import annotations
@@ -25,8 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cggp_tpu_torch.cli.cli_utils import (PARALLEL_NOT_PORTED, Command,
-                                          Context, DatasetType, ExistingPath, FloatType,
+from cggp_tpu_torch.cli.cli_utils import (Command, Context, DatasetType, ExistingPath, FloatType,
                                           KernelType, LogdirPath, UsageError, create_model,
                                           create_update_fn, echo, precision_names,
                                           to_device_bundle)
@@ -108,23 +109,46 @@ def train_cggp_adam(ctx: Context, num_iterations, batch_size, num_inducing_point
     if matrix_free and num_devices is not None:
         raise UsageError("--matrix-free is single-chip; ShardedCGGP (--num-devices) is already "
                          "matrix-free per device")
+    mesh = None
     if num_devices is not None:
-        raise NotImplementedError(PARALLEL_NOT_PORTED)
-    if matrix_free and precondition in ("chol", "auto"):
-        raise UsageError(f"--precondition {precondition} needs the dense [M, M] system "
-                         "(matrix-free models build factors matrix-free: use pivchol)")
-    extra = {"block": block} if matrix_free else {}
-    model, params = create_model(
-        model_class, obj["kernel_fn"], train_data,
-        num_inducing_points=num_inducing_points,
-        error_threshold=error_threshold, seed=obj["seed"],
-        max_cg_iterations=max_cg_iterations,
-        relative_threshold=relative_threshold,
-        precondition=None if precondition == "none" else precondition,
-        precond_rank=precond_rank,
-        dtype=train_data[0].dtype,
-        **extra,
-    )
+        # ShardedCGGP over the N-rank world (torchrun --nproc-per-node N;
+        # one rank on one card), M sharded by rows, random initial centres.
+        from cggp_tpu_torch.parallel import ShardedCGGP, make_mesh
+
+        mesh = make_mesh(num_devices, device=device)
+        x = train_data[0]
+        n, dim = x.shape
+        m0 = num_inducing_points or int(n * 0.1)
+        kernel, kernel_init = obj["kernel_fn"](dim)
+        if precondition in ("rff", "chol", "auto"):
+            raise UsageError(f"--precondition {precondition} is single-chip only; use "
+                             "pivchol with --num-devices")
+        model = ShardedCGGP(kernel=kernel, mesh=mesh, num_data=n,
+                            error_threshold=error_threshold, max_cg_iterations=max(m0, 16),
+                            precondition=None if precondition == "none" else precondition,
+                            precond_rank=precond_rank, relative_threshold=relative_threshold)
+        rng = np.random.RandomState(obj["seed"])
+        iv = x[torch.as_tensor(rng.choice(n, m0, replace=False), device=x.device)]
+        params = model.init_params(iv, noise_variance=0.1, dtype=x.dtype, device=x.device,
+                                   **kernel_init)
+        echo(f"sharded over {num_devices} devices; M={m0} padded to "
+             f"{params['inducing_points'].shape[0]}")
+    else:
+        if matrix_free and precondition in ("chol", "auto"):
+            raise UsageError(f"--precondition {precondition} needs the dense [M, M] system "
+                             "(matrix-free models build factors matrix-free: use pivchol)")
+        extra = {"block": block} if matrix_free else {}
+        model, params = create_model(
+            model_class, obj["kernel_fn"], train_data,
+            num_inducing_points=num_inducing_points,
+            error_threshold=error_threshold, seed=obj["seed"],
+            max_cg_iterations=max_cg_iterations,
+            relative_threshold=relative_threshold,
+            precondition=None if precondition == "none" else precondition,
+            precond_rank=precond_rank,
+            dtype=train_data[0].dtype,
+            **extra,
+        )
     if matrix_free:
         echo(f"matrix-free: M={num_inducing_points} padded to "
              f"{params['inducing_points'].shape[0]} (block {block}); no [M, M] Gram is ever "
@@ -241,6 +265,19 @@ def train_cggp_adam(ctx: Context, num_iterations, batch_size, num_inducing_point
             params = update_fn(params)
         update_fn = None
 
+    train_mesh = None
+    if num_devices is not None and steps_per_call == 1:
+        # Hybrid dp+tp: batch rows sharded over the mesh the model's KL is
+        # sharded on, when the effective batch divides it (else replicated
+        # batches, so every valid invocation still trains).
+        effective_batch = min(batch_size, train_data[0].shape[0])
+        if effective_batch % num_devices == 0:
+            echo(f"data-parallel batches over the {num_devices}-device mesh")
+            train_mesh = mesh
+        else:
+            echo(f"replicated batches: effective batch {effective_batch} does not divide the "
+                 f"{num_devices}-device mesh (pick a multiple to enable data-parallel batches)")
+
     def loss_fn(p, b, k):
         return model.training_loss(p, b, k)
 
@@ -248,6 +285,9 @@ def train_cggp_adam(ctx: Context, num_iterations, batch_size, num_inducing_point
     if precond_refresh == "chunk":
         if steps_per_call <= 1:
             raise UsageError("--precond-refresh chunk needs --steps-per-call > 1")
+        if num_devices is not None:
+            raise UsageError("--precond-refresh chunk applies to the single-chip models (not "
+                             "--num-devices)")
         if precondition == "none":
             raise UsageError("--precond-refresh chunk needs a preconditioner (-P pivchol or "
                              "rff)")
@@ -257,7 +297,8 @@ def train_cggp_adam(ctx: Context, num_iterations, batch_size, num_inducing_point
 
         precond_fn = model.precond_state
     resolver_kwargs = {}
-    if auto_model is not None and update_fn is not None and precond_fn is None:
+    if (auto_model is not None and update_fn is not None and train_mesh is None
+            and precond_fn is None):
         # -P auto keeps resolving during training: re-clustering moves Z
         # and the conditioning with it.  Every boundary for K-step chunks,
         # every record_step-th step at one step a call.
@@ -288,6 +329,7 @@ def train_cggp_adam(ctx: Context, num_iterations, batch_size, num_inducing_point
         trainable_mask=model.trainable_mask(params, trainable_pseudo_u=trainable_u),
         monitor=monitor,
         steps_per_call=steps_per_call,
+        mesh=train_mesh,
         precond_fn=precond_fn,
         recluster_fn=recluster_fn,
         **resolver_kwargs,
@@ -325,8 +367,9 @@ def make_command() -> Command:
     sub.option("-e", "--error-threshold", type=float, default=1e-5)
     sub.option("-r", "--record-step", type=int, default=100)
     sub.option("--num-devices", type=int, default=None,
-               help="Shard the inducing dimension over this many devices (ROADMAP Queue A "
-                    "item 12, not ported yet). Default: one card.")
+               help="Shard the inducing dimension over this many ranks (ShardedCGGP: "
+                    "row-sharded CG over torch.distributed; start N ranks with torchrun "
+                    "--nproc-per-node N). Default: one card.")
     sub.option("-P", "--precondition", choices=["none", "pivchol", "rff", "chol", "auto"],
                default="none",
                help="Per-step CG preconditioning rebuilt from current hyperparameters; "

@@ -30,6 +30,13 @@
 //     deterministic).  248 blocks at M = 989 cover
 //     the 132 SMs.  Plain fp32 FMA: the tensor cores buy nothing here.
 //
+// Gang axis.  A gang of G same-shape systems (gang training, the JAX
+// package's vmap of this kernel, which adds a leading grid axis) runs in
+// one launch of either shape: blockIdx.z picks member g, whose p, A, out
+// and split scratch sit g * (R M, M^2, R M, split words) into the stacked
+// buffers.  Each member's blocks do exactly what a launch on that member
+// alone does, so its output is bitwise the same.
+//
 // The tiled launch's main loop, the split of A and the alignment rules live
 // in tiled_matvec.cuh, shared with B2 (pallas_cg.cu).
 #include <cooperative_groups.h>
@@ -58,6 +65,10 @@ static_assert(kGemvRows * kGemvCols == kThreads, "one thread per output of a blo
 __global__ void __launch_bounds__(kThreads, 1)
     matvec_tiled_kernel(const float* p, const uint32_t* b_split, float* out, int rows, int m) {
   extern __shared__ __align__(1024) float smem[];
+  const size_t member = blockIdx.z;
+  p += member * rows * m;
+  out += member * rows * m;
+  b_split += member * cggp::tiles::split_words(m);
   const int row0 = blockIdx.y * kBlock;
   float acc[64];
   cggp::tiles::tiled_product(p, rows, m, b_split, gridDim.x, blockIdx.x, row0, smem, acc);
@@ -69,6 +80,10 @@ __global__ void __cluster_dims__(1, kGemvSplit, 1) __launch_bounds__(kThreads)
   __shared__ float red[kGemvWarps][kGemvRows][kGemvCols];
   __shared__ float gather[kGemvSplit][kGemvRows][kGemvCols];  // read on rank 0 only
   cg::cluster_group cluster = cg::this_cluster();
+  const size_t member = blockIdx.z;
+  p += member * rows * m;
+  a += member * m * m;
+  out += member * rows * m;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int c = blockIdx.x * kGemvCols + lane;
@@ -110,29 +125,31 @@ __global__ void __cluster_dims__(1, kGemvSplit, 1) __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Words of scratch the tiled launch needs for the split B tiles (0 when
-// rows <= 8: the GEMV reads A as it is).
+// Words of scratch the tiled launch needs for one member's split B tiles
+// (0 when rows <= 8: the GEMV reads A as it is); a gang needs gang times it.
 extern "C" long long cggp_pallas_matvec_scratch_words(int rows, int m) {
   if (rows <= kGemvRows || m <= 0) return 0;
   return cggp::tiles::split_words(m);
 }
 
-// Returns a cudaError_t: the argument check's, else cudaGetLastError() right
-// after each launch (a refused launch never runs and no later synchronize
-// reports it).  b_split: cggp_pallas_matvec_scratch_words(rows, m) words.
-extern "C" int cggp_pallas_matvec(const float* p, const float* a, float* out, int rows, int m,
-                                  void* b_split, void* stream) {
-  if (rows < 0 || m < 0) return cudaErrorInvalidValue;
-  if (rows == 0 || m == 0) return cudaSuccess;
+// out[g] = p[g] @ A[g] for g < gang: p, out [gang, rows, m] and A [gang, m,
+// m], contiguous.  Returns a cudaError_t: the argument check's, else
+// cudaGetLastError() right after each launch (a refused launch never runs
+// and no later synchronize reports it).  b_split: gang *
+// cggp_pallas_matvec_scratch_words(rows, m) words.
+extern "C" int cggp_pallas_matvec(const float* p, const float* a, float* out, int gang,
+                                  int rows, int m, void* b_split, void* stream) {
+  if (gang < 0 || rows < 0 || m < 0 || gang > 65535) return cudaErrorInvalidValue;
+  if (gang == 0 || rows == 0 || m == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= kGemvRows) {
-    const dim3 grid((m + kGemvCols - 1) / kGemvCols, kGemvSplit);
+    const dim3 grid((m + kGemvCols - 1) / kGemvCols, kGemvSplit, gang);
     matvec_gemv_kernel<<<grid, kThreads, 0, s>>>(p, a, out, rows, m);
     return cudaGetLastError();
   }
-  const dim3 grid((m + kBlock - 1) / kBlock, (rows + kBlock - 1) / kBlock);
+  const dim3 grid((m + kBlock - 1) / kBlock, (rows + kBlock - 1) / kBlock, gang);
   if (grid.y > 65535 || b_split == nullptr) return cudaErrorInvalidValue;
-  const dim3 split_grid(grid.x, cggp::tiles::stages(m));
+  const dim3 split_grid(grid.x, cggp::tiles::stages(m), gang);
   cggp::tiles::split_b_kernel<<<split_grid, kThreads, 0, s>>>(a, m,
                                                               static_cast<uint32_t*>(b_split));
   const cudaError_t split_err = cudaGetLastError();

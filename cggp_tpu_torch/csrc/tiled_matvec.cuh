@@ -67,16 +67,19 @@ constexpr size_t kOuterBytes = sizeof(float) * 64 * kThreads;  // 64 KB
 __host__ __device__ constexpr int col_blocks(int m) { return (m + kBlock - 1) / kBlock; }
 __host__ __device__ constexpr int stages(int m) { return (m + kStageDepth - 1) / kStageDepth; }
 // Words of b_split for an [M, M] A.
-inline long long split_words(int m) {
+__host__ __device__ inline long long split_words(int m) {
   return static_cast<long long>(col_blocks(m)) * stages(m) * 2 * kTileWords;
 }
 
-// Grid (col_blocks, stages): block (cb, s) splits one B tile.  In an
+// Grid (col_blocks, stages, gang): block (cb, s, g) splits one B tile of
+// member g's A (a + g M^2) into member g's split_words(M) words.  In an
 // unnamed namespace: each source that includes this header has its own.
 namespace {
 __global__ void __launch_bounds__(kThreads)
     split_b_kernel(const float* a, int m, uint32_t* b_split) {
   const int cb = blockIdx.x, stage = blockIdx.y;
+  a += static_cast<size_t>(blockIdx.z) * m * m;
+  b_split += static_cast<size_t>(blockIdx.z) * split_words(m);
   uint32_t* hi = b_split + (static_cast<size_t>(stage) * gridDim.x + cb) * 2 * kTileWords;
   uint32_t* lo = hi + kTileWords;
 #pragma unroll 4

@@ -1,12 +1,20 @@
 """Shared model machinery (port of ``cggp_tpu/models/base.py``): the Gaussian
 likelihood, minibatch scaling, the Cholesky serving cache and the
-chol-or-CG conditioning policy."""
+chol-or-CG conditioning policy.
+
+Also the row shard of a data-parallel objective (:class:`RowShard`,
+:func:`row_shard`, :func:`claim_row_shard`, :func:`batch_elbo`): under
+``parallel.make_data_parallel_loss`` the batch an ELBO is handed is this
+rank's block of rows, and the ELBO that claims the shard computes its data
+term on those rows and totals it over the ranks."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional
+import threading
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -47,6 +55,61 @@ class GaussianLikelihood:
         """``log N(y | f_mean, f_var + sigma^2)`` per data point."""
         total_var = f_var + self.variance(params)
         return -0.5 * (_LOG2PI + torch.log(total_var) + torch.square(y - f_mean) / total_var)
+
+
+class RowShard(NamedTuple):
+    """This rank's share of a data-parallel objective: the batch is block
+    ``rank`` of ``size`` equal row blocks.  ``gather_rows`` returns every
+    rank's rows in rank order; ``total`` sums a tensor over the ranks (its
+    gradient passes through to this rank's part); ``sum_grads`` passes a
+    tree of tensors through and sums their gradients over the ranks."""
+
+    size: int
+    rank: int
+    gather_rows: Callable
+    total: Callable
+    sum_grads: Callable
+
+
+_ROW_SHARD = threading.local()
+
+
+@contextlib.contextmanager
+def row_shard(shard: RowShard):
+    """Within the block (on the calling thread), the first objective that
+    calls :func:`claim_row_shard` takes ``shard``.  Yields a list that holds
+    the shard once it is claimed."""
+    claimed: list = []
+    outer = getattr(_ROW_SHARD, "slot", None)
+    _ROW_SHARD.slot = (shard, claimed)
+    try:
+        yield claimed
+    finally:
+        _ROW_SHARD.slot = outer
+
+
+def claim_row_shard() -> Optional[RowShard]:
+    """The row shard the calling objective is evaluated under, marked taken;
+    None outside :func:`row_shard` or once taken (a nested objective does
+    not split the batch again)."""
+    slot = getattr(_ROW_SHARD, "slot", None)
+    if slot is None or slot[1]:
+        return None
+    slot[1].append(slot[0])
+    return slot[0]
+
+
+def batch_elbo(data_sum: torch.Tensor, rows: int, num_data: Optional[int], kl: torch.Tensor,
+               shard: Optional[RowShard] = None) -> torch.Tensor:
+    """``data_sum * N / batch - kl``.  Under ``shard``, ``data_sum`` covers
+    this rank's ``rows`` and the KL is counted on rank 0 only; the value is
+    totalled over the ranks (the caller's parameters entered through
+    ``shard.sum_grads``, so each rank's partial gradients are totalled
+    too)."""
+    if shard is None:
+        return data_sum * minibatch_scale(num_data, rows, kl.dtype) - kl
+    scale = minibatch_scale(num_data, rows * shard.size, kl.dtype)
+    return shard.total(data_sum * scale - kl * float(shard.rank == 0))
 
 
 def minibatch_scale(num_data: Optional[int], batch_size: int, dtype: torch.dtype) -> torch.Tensor:

@@ -29,6 +29,20 @@ or ``"auto"`` (a Lanczos conditioning estimate picks ``"chol"`` or
 Probes come from ``rademacher``, looked up in this module when a step runs,
 drawn from a ``torch.Generator`` (``key``) on the parameters' device.
 
+Gang training (``training.gang``): parameters stacked on a leading [G]
+axis, a batch ``(x [G, B, D], y [G, B, P])`` and a list of G generators give
+[G] ELBOs.  The fused zero-logdet ELBO, unpreconditioned, under the exact
+factor or under pivoted Cholesky (``precondition`` None, ``"chol"``,
+``"pivchol"`` or ``"auto"``), runs batched through the one :meth:`CGGP.elbo`
+(one gang CG solve, ``ops/cg.py``); any other configuration runs member by
+member.  Each member draws its probes from its own generator in the solo
+order, so a member's value is its solo ELBO.
+
+Data-parallel training (``parallel.make_data_parallel_loss``): under a
+:func:`~cggp_tpu_torch.models.base.row_shard` the batch is this rank's
+rows; the ELBO solves ``[u | probes | Kmn(its rows)]``, counts the KL on
+rank 0 only and totals its value and gradients over the ranks.
+
 Re-clustering: :meth:`CGGP.assign_clusters` swaps in a host selection
 (re-padded to the pinned capacity on capacity-padded params) and
 :meth:`CGGP.assign_clusters_device` is the fixed-capacity swap.
@@ -48,7 +62,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from cggp_tpu_torch.models.base import chol_or_cg_from_eigs, minibatch_scale
+from cggp_tpu_torch.models.base import batch_elbo, chol_or_cg_from_eigs, claim_row_shard
 from cggp_tpu_torch.models.clustergp import ClusterGP, _as_tensor
 from cggp_tpu_torch.ops.cg import (CGStats, CholPreconditioner, ConjugateGradient,
                                    SpectralPreconditioner, _cholesky_or_nan,
@@ -94,17 +108,17 @@ class CGGP(ClusterGP):
     @staticmethod
     def _mask_of(params: Dict) -> Optional[torch.Tensor]:
         mask = params.get("inducing_mask")
-        return None if mask is None else mask.detach()[:, 0]
+        return None if mask is None else mask.detach()[..., 0]
 
     def _masked_kmm(self, kp, z, mask):
         """``K(Z, Z)`` with pad rows and columns zeroed (the pad block of
         ``Kmm + Lambda`` is then exactly ``diag(Lambda)``)."""
         kmm = self.kernel.K(kp, z)  # jitter = 0
-        return kmm if mask is None else kmm * (mask[:, None] * mask[None, :])
+        return kmm if mask is None else kmm * (mask[..., :, None] * mask[..., None, :])
 
     def _masked_kmn(self, kp, z, x, mask):
         kmn = self.kernel.K(kp, z, x)
-        return kmn if mask is None else kmn * mask[:, None]
+        return kmn if mask is None else kmn * mask[..., None]
 
     def _pad_multiple_for(self, m: int) -> int:
         return 1  # the dense model takes any capacity
@@ -190,7 +204,7 @@ class CGGP(ClusterGP):
         if mode is None:
             return None
         if mode == "auto":
-            mode = "chol" if z.shape[0] <= _CHOL_AUTO_MAX_M else "pivchol"
+            mode = "chol" if z.shape[-2] <= _CHOL_AUTO_MAX_M else "pivchol"
         with torch.no_grad():
             if mode == "rff":
                 if key is None:
@@ -199,10 +213,10 @@ class CGGP(ClusterGP):
                                           z.detach(), var[:, 0].detach(), self.precond_rank,
                                           key)
             if mode == "pivchol":
-                return pivoted_cholesky_preconditioner(kmm.detach(), var[:, 0].detach(),
+                return pivoted_cholesky_preconditioner(kmm.detach(), var[..., 0].detach(),
                                                        self.precond_rank)
             if mode == "chol":
-                return CholPreconditioner(kmm.detach(), var[:, 0].detach())
+                return CholPreconditioner(kmm.detach(), var[..., 0].detach())
         raise ValueError(f"unknown precondition mode: {self.precondition!r}")
 
     def _extremal_eigs(self, params: Dict):
@@ -303,40 +317,61 @@ class CGGP(ClusterGP):
         ``[u | probes | logdet probes | Kmn]`` (and so one backward solve).
 
         ``precond_override`` (a state from :meth:`precond_state`, or ``()``
-        for the identity) replaces the per-step preconditioner build."""
+        for the identity) replaces the per-step preconditioner build.  A
+        gang (parameters on a leading [G] axis, ``key`` a list of G
+        generators) gives [G] ELBOs; see the module docstring."""
         if key is None:
             raise ValueError("CGGP.elbo requires a generator (key) for the trace/logdet probes")
+        z = params["inducing_points"]
+        gang = z.dim() == 3
+        if gang:
+            key = list(key)
+            if len(key) != z.shape[0]:
+                raise ValueError(f"a gang of {z.shape[0]} needs {z.shape[0]} generators, "
+                                 f"got {len(key)}")
+            if not self._gang_batches(precond_override):
+                return self._member_by_member(params, data, key, precond_override)
         if self.num_probes is None or not self.fuse_kl_solves:
             if precond_override is not None:
                 raise ValueError("precond_override is supported on the fused ELBO path only "
                                  "(num_probes set and fuse_kl_solves=True)")
             return self._elbo_unfused(params, data, key)
 
+        shard = claim_row_shard()
+        if shard is not None:
+            params = shard.sum_grads(params)  # this rank's rows: partial gradients
         x, y = data
         kp = params["kernel"]
         z = params["inducing_points"]
         u = params["pseudo_u"]
-        var = self.diag_variance(params)
-        m, dtype = z.shape[0], z.dtype
+        lik = params["likelihood"]
+        if gang:
+            lik = {k: v.reshape(-1, 1, 1) for k, v in lik.items()}
+        var = self.likelihood.variance(lik) / params["cluster_counts"]
+        m, dtype = z.shape[-2], z.dtype
         mask = self._mask_of(params)
 
         kmm = self._masked_kmm(kp, z, mask)  # jitter = 0
-        kmm_lambda = add_diagonal(kmm, var[:, 0])
+        kmm_lambda = add_diagonal(kmm, var[..., 0])
         kmn = self._masked_kmn(kp, z, x, mask)  # [M, B]
 
         cg = self.conjugate_gradient
         p = self.num_probes
-        probes = rademacher(key, (m, p), dtype)
         use_slq = self.logdet_variant == "slq"
+        # Each generator draws its trace probes, then its logdet probes.
+        keys = key if gang else [key]
+        probes = torch.stack([rademacher(k, (m, p), dtype) for k in keys])
         if use_slq:
-            logdet_probes = torch.zeros((m, 0), dtype=dtype, device=z.device)
+            logdet_probes = torch.zeros((len(keys), m, 0), dtype=dtype, device=z.device)
         else:
             # Independent probes for the logdet gradient, solved in the same
             # fused CG launch.
-            logdet_probes = rademacher(key, (m, p), dtype)
+            logdet_probes = torch.stack([rademacher(k, (m, p), dtype) for k in keys])
+        if not gang:
+            probes, logdet_probes = probes[0], logdet_probes[0]
         if mask is not None:
-            probes = probes * mask[:, None]
-            logdet_probes = logdet_probes * mask[:, None]
+            probes = probes * mask[..., None]
+            logdet_probes = logdet_probes * mask[..., None]
 
         if precond_override is None:
             # The "rff" sketch draws after the probes, in place of JAX's key_rff.
@@ -348,13 +383,14 @@ class CGGP(ClusterGP):
         solved = cg(kmm_lambda, rhs, preconditioner=precond)
         p_out = u.shape[-1]
         q = logdet_probes.shape[-1]
-        inv_u = solved[:, :p_out]
-        inv_probes = solved[:, p_out:p_out + p]
-        inv_logdet_probes = solved[:, p_out + p:p_out + p + q]
-        inv_kmn = solved[:, p_out + p + q:]
+        inv_u = solved[..., :p_out]
+        inv_probes = solved[..., p_out:p_out + p]
+        inv_logdet_probes = solved[..., p_out + p:p_out + p + q]
+        inv_kmn = solved[..., p_out + p + q:]
 
-        trace = torch.sum(inv_probes * (kmm @ probes)) / p
-        quad = torch.sum((kmm @ inv_u) * inv_u)
+        members = (-2, -1)
+        trace = torch.sum(inv_probes * _member_mm(kmm, probes), dim=members) / p
+        quad = torch.sum(_member_mm(kmm, inv_u) * inv_u, dim=members)
         if use_slq:
             logdet = slq_logdet(kmm_lambda, cg, num_probes=p, key=key,
                                 lanczos_iters=self.slq_lanczos_iters, preconditioner=precond,
@@ -363,21 +399,42 @@ class CGGP(ClusterGP):
             # The gradient reuses this launch's probe solutions (constants).
             logdet = eval_logdet_from_solves(kmm_lambda, logdet_probes, inv_logdet_probes)
         log_var = torch.log(var)
-        const = torch.sum(log_var if mask is None else log_var * mask[:, None])
+        const = torch.sum(log_var if mask is None else log_var * mask[..., None], dim=members)
         kl = 0.5 * (quad - trace + logdet - const)
 
         knn = self.kernel.K_diag(kp, x)
-        f_var = (knn - torch.sum(kmn * inv_kmn, dim=0))[:, None]
-        f_mean = kmn.T @ inv_u
-        var_exp = self.likelihood.variational_expectations(params["likelihood"], f_mean, f_var, y)
-        return torch.sum(var_exp) * minibatch_scale(self.num_data, x.shape[0], kl.dtype) - kl
+        f_var = (knn - torch.sum(kmn * inv_kmn, dim=-2))[..., None]
+        f_mean = _member_mm(kmn.mT, inv_u)
+        var_exp = self.likelihood.variational_expectations(lik, f_mean, f_var, y)
+        return batch_elbo(torch.sum(var_exp, dim=members), x.shape[-2], self.num_data, kl,
+                          shard)
+
+    def _gang_batches(self, precond_override) -> bool:
+        """Whether a gang's ELBO runs batched: the fused zero-logdet ELBO
+        under no preconditioner, the exact factor or pivoted Cholesky."""
+        mode = self.precondition
+        return (self.num_probes is not None and self.fuse_kl_solves
+                and self.logdet_variant == "zero" and precond_override is None
+                and mode in (None, "chol", "pivchol", "auto"))
+
+    def _member_by_member(self, params: Dict, data, keys, precond_override) -> torch.Tensor:
+        """[G] solo ELBOs of a gang, one member at a time."""
+        x, y = data
+        return torch.stack([
+            self.elbo(_tree_member(params, g), (x[g], y[g]), keys[g],
+                      precond_override=None if precond_override is None
+                      else _tree_member(precond_override, g))
+            for g in range(len(keys))])
 
     def _elbo_unfused(self, params: Dict, data, key: torch.Generator) -> torch.Tensor:
+        shard = claim_row_shard()
+        if shard is not None:
+            params = shard.sum_grads(params)
         x, y = data
         kl = self.prior_kl(params, key)
         f_mean, f_var = self.predict_f(params, x, full_cov=False)
         var_exp = self.likelihood.variational_expectations(params["likelihood"], f_mean, f_var, y)
-        return torch.sum(var_exp) * minibatch_scale(self.num_data, x.shape[0], kl.dtype) - kl
+        return batch_elbo(torch.sum(var_exp), x.shape[0], self.num_data, kl, shard)
 
     def training_loss(self, params: Dict, data, key: Optional[torch.Generator] = None,
                       precond_override=None) -> torch.Tensor:
@@ -639,6 +696,24 @@ class CGGP(ClusterGP):
             knn = self.kernel.K_diag(kp, x_new)
             fvar = (knn - torch.sum(kmn * inv_kmn, dim=0))[:, None]
         return kmn.T @ post.nu, fvar
+
+
+def _member_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``; for a gang one product per member: the bits of the solo
+    step's product (a batched product sums in another order, and these feed
+    the backward CG solve, which magnifies an ulp past M steps)."""
+    if a.dim() == 2:
+        return torch.matmul(a, b)
+    return torch.stack([torch.matmul(ag, bg) for ag, bg in zip(a, b)])
+
+
+def _tree_member(tree, g: int):
+    """Member ``g`` of a gang-stacked dict (or tuple) of tensors."""
+    if isinstance(tree, dict):
+        return {k: _tree_member(v, g) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_member(v, g) for v in tree)
+    return tree[g]
 
 
 class CGGPPosterior(NamedTuple):

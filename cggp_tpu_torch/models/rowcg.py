@@ -28,8 +28,13 @@ and ``"rff"`` preconditioners (the sketch from a generator seeded
 :meth:`assign_clusters` (re-padded to the pad multiple) and
 :meth:`assign_clusters_device` (fixed capacity).
 
-Serving: ``predict_f``, ``posterior(solver="cg")`` (``"auto"`` resolves to
-``"cg"``) or ``posterior(solver="lanczos")`` (the LOVE cache of rank
+Serving: ``predict_f``, ``posterior(solver="cg")``, ``posterior(solver=
+"chol")`` where the subclass allows it (``_supports_chol_serving``: the
+sharded model materialises and factorizes the masked ``Kmm + Lambda`` once;
+``"auto"`` is ``"chol"`` there up to M = 16384, else ``"cg"``, and
+:meth:`RowSolveCGGP.resolve_serving_solver` decides by a Lanczos
+conditioning estimate through the model's matvec), or
+``posterior(solver="lanczos")`` (the LOVE cache of rank
 ``serving_lanczos_rank``, built through the solve route's matvec — B3 under
 ``use_pallas`` — from the masked ``u``, so the basis never leaves the real
 coordinates), ``posterior_mean`` and ``posterior_predict``.
@@ -42,14 +47,19 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from cggp_tpu_torch.models.base import minibatch_scale
+from cggp_tpu_torch.models.base import (batch_elbo, chol_or_cg_from_eigs, claim_row_shard,
+                                        minibatch_scale)
 from cggp_tpu_torch.models.clustergp import ClusterGP, _as_tensor
-from cggp_tpu_torch.ops.cg import CGStats
+from cggp_tpu_torch.ops.cg import CGStats, _cholesky_or_nan
 from cggp_tpu_torch.ops.cg_implicit import kernel_precond_state, pad_inducing
 from cggp_tpu_torch.ops.logdet import (lanczos_quad_cache_rows, love_seed_row, love_variance,
                                        make_matfree_eval_logdet,
                                        make_matfree_logdet_from_solves,
-                                       make_matfree_slq_logdet, rademacher)
+                                       lanczos_extremal_eigs_rows, make_matfree_slq_logdet,
+                                       rademacher)
+
+# Above this padded M the Cholesky-capable row models serve by CG.
+_CHOL_SERVING_MAX_M = 16384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +86,15 @@ class RowSolveCGGP(ClusterGP):
     # variances are conservative over-estimates, exact at rank = M, so
     # "auto" never picks it.
     serving_lanczos_rank: int = 128
+
+    # Whether posterior(solver="chol"/"auto") may materialise and factorize
+    # the [M, M] system (the sharded model: yes, a replica is cheap at its
+    # M; the matrix-free model: no, that buffer is what it exists to avoid).
+    _supports_chol_serving = False
+    # Whether the solve's ranks hold parts of one system (the sharded model),
+    # so that a data-parallel ELBO solves the whole batch's rows on every
+    # rank; else each rank solves its own rows.
+    _solve_takes_every_row = False
 
     def _wire_logdets(self) -> None:
         """Call at the end of the subclass ``__post_init__`` (after
@@ -225,6 +244,14 @@ class RowSolveCGGP(ClusterGP):
             raise ValueError(f"{type(self).__name__}.elbo requires a generator (key) for the "
                              "trace/logdet probes")
         x, y = data
+        shard = claim_row_shard()
+        if shard is not None and not self._solve_takes_every_row:
+            params = shard.sum_grads(params)  # this rank's rows: partial gradients
+        x_solve = x
+        if shard is not None and self._solve_takes_every_row:
+            # A solve whose ranks hold parts of one system takes the same
+            # right-hand sides on every rank: the whole batch's Kmn rows.
+            x_solve = shard.gather_rows(x)
         kp = params["kernel"]
         z = params["inducing_points"]
         u = params["pseudo_u"]
@@ -240,7 +267,7 @@ class RowSolveCGGP(ClusterGP):
         logdet_probes = (torch.zeros((0, m), dtype=dtype, device=z.device) if use_slq
                          else rademacher(key, (p, m), dtype) * mask[None, :])
         n_ld = logdet_probes.shape[0]
-        kmn = self.kernel.K(kp, x, z) * mask[None, :]  # [B, M] rows
+        kmn = self.kernel.K(kp, x_solve, z) * mask[None, :]  # [B, M] rows
 
         rhs = torch.cat([u.T, probes, logdet_probes, kmn], dim=0)
         precond = (self._precond_state(kp, z, lam, mask) if precond_override is None
@@ -265,11 +292,22 @@ class RowSolveCGGP(ClusterGP):
         kl = 0.5 * (quad - trace + logdet - const)
 
         # -- data term --
-        knn = self.kernel.K_diag(kp, x)
+        knn = self.kernel.K_diag(kp, x_solve)
         f_var = (knn - torch.sum(kmn * inv_kmn, dim=-1))[:, None]
         f_mean = kmn @ nu.T
-        var_exp = self.likelihood.variational_expectations(params["likelihood"], f_mean, f_var, y)
-        return torch.sum(var_exp) * minibatch_scale(self.num_data, x.shape[0], kl.dtype) - kl
+        lik = params["likelihood"]
+        if x_solve is not x:
+            # Every rank holds the whole batch's (f_mean, f_var) and takes its
+            # own rows: their gradients, summed over the ranks, reach the
+            # replicated solve as the whole batch's, the same on every rank.
+            lik, f_mean, f_var = shard.sum_grads((lik, f_mean, f_var))
+            rows = slice(shard.rank * x.shape[0], (shard.rank + 1) * x.shape[0])
+            f_mean, f_var = f_mean[rows], f_var[rows]
+            var_exp = self.likelihood.variational_expectations(lik, f_mean, f_var, y)
+            return (shard.total(torch.sum(var_exp))
+                    * minibatch_scale(self.num_data, x_solve.shape[0], kl.dtype) - kl)
+        var_exp = self.likelihood.variational_expectations(lik, f_mean, f_var, y)
+        return batch_elbo(torch.sum(var_exp), x.shape[0], self.num_data, kl, shard)
 
     def training_loss(self, params: Dict, data, key: Optional[torch.Generator] = None,
                       precond_override=None) -> torch.Tensor:
@@ -317,10 +355,24 @@ class RowSolveCGGP(ClusterGP):
     # -- cached serving ----------------------------------------------------------
 
     def resolve_serving_solver(self, params: Dict) -> str:
-        """Eager ``"auto"`` resolution: always ``"cg"``, since the row models
-        of the port serve matrix-free (the Cholesky-capable sharded model,
-        with its Lanczos conditioning estimate, is not ported)."""
-        return "cg"
+        """Eager ``"auto"`` resolution: ``"cg"`` where Cholesky serving is not
+        supported or M exceeds 16384, else the Lanczos extremal Ritz values
+        of the masked system through the model's own matvec (a start vector
+        seeded 0, no [M, M] build) decide between ``"chol"`` and ``"cg"``."""
+        if not self._supports_chol_serving:
+            return "cg"
+        z = params["inducing_points"]
+        if z.shape[0] > _CHOL_SERVING_MAX_M:
+            return "cg"
+        kp = params["kernel"]
+        lam = self.diag_variance(params)[:, 0]
+        mask = params["inducing_mask"].detach()[:, 0]
+        with torch.no_grad():
+            eig_min, eig_max = lanczos_extremal_eigs_rows(
+                lambda rows: self._matvec(kp, z, lam, mask, rows),
+                torch.Generator(device=z.device).manual_seed(0), z.shape[0], z.dtype,
+                num_iters=min(64, int(z.shape[0])), mask=mask)
+        return chol_or_cg_from_eigs(eig_min, eig_max, z.dtype)
 
     def _love_rows(self, kp, z, lam, mask, seed: torch.Tensor) -> torch.Tensor:
         """The LOVE cache ``R`` [k, M_pad] of the masked system, ``k =
@@ -337,21 +389,32 @@ class RowSolveCGGP(ClusterGP):
         preconditioner; ``posterior_predict`` then solves only the Kmn rows.
         ``"lanczos"`` also builds the LOVE rows (:meth:`_love_rows`, seeded
         with the masked ``u``), so a batch's variance is two skinny
-        products, no solve.  ``"auto"`` is ``"cg"``."""
+        products, no solve.  ``"chol"`` (where supported) factorizes the
+        masked ``Kmm + Lambda`` (pads decoupled, unit diagonal) once, so a
+        batch's variance is two triangular solves.  ``"auto"`` is ``"chol"``
+        where supported at M <= 16384, else ``"cg"`` (eager callers resolve
+        it through :meth:`resolve_serving_solver` first)."""
         if solver == "auto":
-            solver = self.resolve_serving_solver(params)
-        if solver == "chol":
+            solver = ("chol" if self._supports_chol_serving
+                      and params["inducing_points"].shape[0] <= _CHOL_SERVING_MAX_M else "cg")
+        if solver == "chol" and not self._supports_chol_serving:
             raise ValueError(
                 f"{type(self).__name__} serves matrix-free; solver='chol' would "
                 "materialise the [M, M] system this model exists to avoid — "
                 "use 'cg' or 'auto'")
-        if solver not in ("cg", "lanczos"):
+        if solver not in ("cg", "lanczos", "chol"):
             raise ValueError(f"unknown posterior solver: {solver!r}")
         kp = params["kernel"]
         z = params["inducing_points"]
         u = params["pseudo_u"]
         lam = self.diag_variance(params)[:, 0]
         mask = params["inducing_mask"][:, 0]
+        if solver == "chol":
+            kmm = self.kernel.K(kp, z) * (mask[:, None] * mask[None, :])
+            chol = _cholesky_or_nan(kmm + torch.diag(lam * mask + (1.0 - mask)))
+            nu = torch.cholesky_solve(u * mask[:, None], chol).T  # [1, M_pad], CG's layout
+            return RowCGGPPosterior(kernel_params=kp, inducing_points=z, lam=lam, mask=mask,
+                                    nu=nu, precond_state=(), chol=chol)
         precond_state = self._precond_state(kp, z, lam, mask)
         nu, _ = self._solve(kp, z, lam, u.T, precond_state, mask)
         lanczos_r = (self._love_rows(kp, z, lam, mask, (u * mask[:, None]).T)
@@ -375,7 +438,10 @@ class RowSolveCGGP(ClusterGP):
         if post.lanczos_r is not None:
             knn = self.kernel.K(kp, x_new) if full_cov else self.kernel.K_diag(kp, x_new)
             return kmn @ post.nu.T, love_variance(post.lanczos_r, kmn, knn, full_cov)
-        inv_kmn, _ = self._solve(kp, z, post.lam, kmn, post.precond_state, post.mask)
+        if post.chol is not None:
+            inv_kmn = torch.cholesky_solve(kmn.T, post.chol).T
+        else:
+            inv_kmn, _ = self._solve(kp, z, post.lam, kmn, post.precond_state, post.mask)
         if full_cov:
             knn = self.kernel.K(kp, x_new)
             fvar = (knn - kmn @ inv_kmn.T)[None, ...]
@@ -395,5 +461,5 @@ class RowCGGPPosterior(NamedTuple):
     mask: torch.Tensor  # [M_pad] 1 real / 0 pad
     nu: torch.Tensor  # [1, M_pad] row = ((Kmm + Lambda)^{-1} u)^T
     precond_state: Tuple  # () = identity, else SpectralPreconditioner state
-    chol: Optional[torch.Tensor] = None  # always None: served matrix-free
+    chol: Optional[torch.Tensor] = None  # [M_pad, M_pad] lower Cholesky (masked A)
     lanczos_r: Optional[torch.Tensor] = None  # [k, M_pad] LOVE cache (solver="lanczos")

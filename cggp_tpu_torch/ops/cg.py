@@ -50,8 +50,24 @@ widened to fp32 first, which gives the same exact products.
 
 The loops of every route but ``"pallas_resident"`` read their stop rule on
 the host once per iteration; B2 decides on the device and the call returns
-without a host read.  :meth:`ConjugateGradient.solve_chunked` runs a solve
-in host-driven chunks (residual replacement with the direction carried).
+without a host read.  Under :func:`agreed_stop` the stop flags of
+:func:`cg_loop` and of :func:`ir_cg_loop`'s refinement pass through a
+reduction first, so that ranks take one decision (``parallel``); a
+solve's backward pass takes the reduction its forward pass ran under.
+
+A gang (gang training) stacks G same-shape systems on a leading axis:
+``A [G, M, M]``, right-hand sides ``[G, M, R]``.  ``"xla"``, ``"pallas"``
+(B1 with the gang on its grid) and ``"xla_high"`` run one batched loop
+until every member's stop rule holds, a member that has stopped keeping
+its state (the JAX package's batched ``while_loop`` selects the old carry),
+so each member gets its solo iterates; ``CGStats`` then carry [G] steps and
+flags.  The exact-factor preconditioner (:class:`CholPreconditioner`) takes
+a gang's stacked factors, as does the spectral one (pivoted Cholesky);
+``"pallas_resident"``, the bf16 routes and the other preconditioners solve
+member by member.
+
+:meth:`ConjugateGradient.solve_chunked` runs a solve in host-driven chunks
+(residual replacement with the direction carried).
 
 Preconditioners: :class:`EyePreconditioner`, :class:`BlockPreconditioner`,
 :class:`NystromPreconditioner`, :class:`SpectralPreconditioner`,
@@ -61,6 +77,8 @@ Preconditioners: :class:`EyePreconditioner`, :class:`BlockPreconditioner`,
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import warnings
 import weakref
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -74,6 +92,8 @@ from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec
 
 MATVEC_IMPLS = ("xla", "pallas", "pallas_resident", "xla_high", "xla_bf16", "bf16_ir",
                 "bf16_ru")
+# Routes whose loop runs a gang batched; the others solve member by member.
+_GANG_BATCHED = ("xla", "pallas", "xla_high")
 _DOTS = ("standard", "compensated")
 _MIN_FLOAT = 1e-16
 
@@ -205,19 +225,23 @@ class SpectralPreconditioner:
 
     The apply re-orthogonalizes the projection once (twice is enough) and
     accumulates ``r^T z`` as ``||y_perp||^2 + sum(w t^2)``, positive by
-    construction.  Cost per apply: four skinny [m, n] x [n, k] matmuls."""
+    construction.  Cost per apply: four skinny [m, n] x [n, k] matmuls.
+    A gang's stacked factors ``[G, n, k]`` (``lam [G, n]``) give one state a
+    member, applied batched."""
 
     def __init__(self, factor: torch.Tensor, lam: torch.Tensor):
-        lam = lam.reshape(-1).to(factor.dtype)
+        lam = lam.reshape(factor.shape[:-1]).to(factor.dtype)
         d_inv_sqrt = torch.rsqrt(lam)
-        w_fac = factor * d_inv_sqrt[:, None]  # D^{-1/2} U, [n, k]
+        w_fac = factor * d_inv_sqrt[..., :, None]  # D^{-1/2} U, [n, k]
         q, r_fac = torch.linalg.qr(w_fac)
-        small = torch.matmul(r_fac, r_fac.T)  # [k, k] = Q^T W W^T Q
+        small = torch.matmul(r_fac, r_fac.mT)  # [k, k] = Q^T W W^T Q
         k = small.shape[-1]
         eps = torch.finfo(factor.dtype).eps
-        ridge = 10.0 * eps * torch.clamp(torch.trace(small) / k, min=1.0)
+        trace = (torch.trace(small) if small.dim() == 2
+                 else torch.diagonal(small, dim1=-2, dim2=-1).sum(-1))
+        ridge = (10.0 * eps * torch.clamp(trace / k, min=1.0))[..., None]
         eye = torch.eye(k, dtype=factor.dtype, device=factor.device)
-        s2, v = torch.linalg.eigh(small + ridge * eye)
+        s2, v = torch.linalg.eigh(small + ridge[..., None] * eye)
         s2 = torch.clamp(s2 - ridge, min=0.0)
         q = torch.matmul(q, v)  # still orthonormal (V orthogonal)
         weights = 1.0 / (1.0 + s2)
@@ -227,15 +251,15 @@ class SpectralPreconditioner:
     def apply(state, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
         del mat
         q, weights, d_inv_sqrt = state
-        y = vec * d_inv_sqrt[None, :]  # [m, n]
+        y = vec * d_inv_sqrt[..., None, :]  # [m, n]
         t = torch.matmul(y, q)  # [m, k]
-        y_perp = y - torch.matmul(t, q.T)
+        y_perp = y - torch.matmul(t, q.mT)
         # Re-orthogonalize: after this, Q^T y_perp ~ 0 to working precision
         # even when y lies almost entirely inside span(Q).
         t2 = torch.matmul(y_perp, q)
-        y_perp = y_perp - torch.matmul(t2, q.T)
-        wt = t * weights[None, :]
-        z = (y_perp + torch.matmul(wt, q.T)) * d_inv_sqrt[None, :]
+        y_perp = y_perp - torch.matmul(t2, q.mT)
+        wt = t * weights[..., None, :]
+        z = (y_perp + torch.matmul(wt, q.mT)) * d_inv_sqrt[..., None, :]
         rz = torch.sum(torch.square(y_perp), dim=-1, keepdim=True) + torch.sum(
             wt * t, dim=-1, keepdim=True)
         return z, rz
@@ -256,24 +280,29 @@ class CholPreconditioner:
     ``torch.where``), with no host read.  The state is ``{"chol_w": W}``."""
 
     def __init__(self, matrix: torch.Tensor, lam: torch.Tensor):
-        lam = lam.reshape(-1).to(matrix.dtype)
-        a = matrix + torch.diag(lam)
+        # A gang's stacked systems ([G, M, M], lam [G, M]) get one factor each.
+        lam = lam.reshape(matrix.shape[:-1]).to(matrix.dtype)
+        a = matrix + torch.diag_embed(lam)
         eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
         chol, info = torch.linalg.cholesky_ex(a)
         w = torch.linalg.solve_triangular(chol, eye, upper=False)
-        ok = torch.logical_and(info == 0, torch.all(torch.isfinite(w)))
-        self.state = {"chol_w": torch.where(ok, w, eye)}
+        ok = torch.logical_and(info == 0, torch.all(torch.isfinite(w).flatten(-2), dim=-1))
+        self.state = {"chol_w": torch.where(ok[..., None, None], w, eye)}
 
     @staticmethod
     def apply(state, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
         del mat
         w = state["chol_w"]
-        y = torch.matmul(vec, w.T)  # [R, M] = (L^{-1} r^T)^T
+        y = torch.matmul(vec, w.mT)  # [R, M] = (L^{-1} r^T)^T
         z = torch.matmul(y, w)
         return z, torch.sum(torch.square(y), dim=-1, keepdim=True)
 
     def __call__(self, vec: torch.Tensor, mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.apply(self.state, vec, mat)
+
+
+# Preconditioner applies that broadcast over a gang's leading axis.
+_GANG_APPLIES = (CholPreconditioner.apply, SpectralPreconditioner.apply)
 
 
 def spectral_precond_state(factor: torch.Tensor, lam: torch.Tensor):
@@ -321,6 +350,49 @@ def _targets(b: torch.Tensor, error_threshold: float, relative: bool) -> torch.T
     return threshold * 0.5 * _row_sq(b) if relative else threshold
 
 
+# The calling thread's stack of :func:`agreed_stop` reductions.
+_STOP_AGREEMENT = threading.local()
+
+
+def _agreement_stack() -> list:
+    if not hasattr(_STOP_AGREEMENT, "stack"):
+        _STOP_AGREEMENT.stack = []
+    return _STOP_AGREEMENT.stack
+
+
+@contextlib.contextmanager
+def agreed_stop(agree: Callable[[torch.Tensor], torch.Tensor]):
+    """Within the block (on the calling thread), :func:`cg_loop` passes its
+    over-threshold flag through ``agree`` (a cross-rank MAX) before the host
+    reads it, so every rank of a data-parallel call takes the same number
+    of steps."""
+    stack = _agreement_stack()
+    stack.append(agree)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def current_agreement() -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+    """The innermost :func:`agreed_stop` reduction, None outside one."""
+    stack = _agreement_stack()
+    return stack[-1] if stack else None
+
+
+def agreed_stop_of(agree) -> contextlib.AbstractContextManager:
+    """:func:`agreed_stop` of ``agree``, a no-op for None: a solve's backward
+    pass, run after the block has closed, takes its decisions under the
+    reduction its forward pass ran under (:func:`current_agreement`)."""
+    return contextlib.nullcontext() if agree is None else agreed_stop(agree)
+
+
+def _over_threshold(r: torch.Tensor, threshold) -> torch.Tensor:
+    """Whether any row is over its target: a 0-d flag, or [G] for a gang."""
+    over = 0.5 * _row_sq(r) > threshold
+    return torch.any(over.flatten(-2), dim=-1)
+
+
 def cg_loop(
     matvec: Callable[[torch.Tensor], torch.Tensor],
     precond_apply: Callable,
@@ -344,7 +416,11 @@ def cg_loop(
     ``dot`` takes the curvature ``p.pA``.  ``iteration_budget`` caps the
     iterations below ``max_iterations`` (the refinement loop's remaining
     budget), leaving the restart rule, which reads ``max_iterations``, as it
-    is.
+    is.  Under :func:`agreed_stop` the over-threshold flag is reduced across
+    ranks (the innermost reduction) before the host reads it.
+
+    A gang (``b`` of [G, R, n]) runs until every member has stopped; a
+    stopped member keeps its state, and ``steps`` / ``converged`` are [G].
 
     ``p0`` carries a search direction in from an earlier run (residual
     replacement): the residual is still re-anchored on the true ``b - v0 A``,
@@ -357,14 +433,20 @@ def cg_loop(
     never_restart = max_steps_cycle > max_iterations
     cap = max_iterations if iteration_budget is None else min(max_iterations,
                                                               int(iteration_budget))
+    agree = current_agreement()
 
     def over_threshold(r):
-        return bool(torch.any(0.5 * _row_sq(r) > threshold))
+        flag = _over_threshold(r, threshold)
+        return flag if agree is None else agree(flag)
 
     r = b - matvec(v0)
     z, rz = precond_apply(precond_state, r, mat_for_precond)
     state = CGState(0, v0, r, z if p0 is None else p0, rz)
-    while state.i < cap and over_threshold(state.r):
+    if b.dim() == 3:
+        return _gang_loop(matvec, precond_apply, precond_state, b, state, over_threshold,
+                          threshold, cap, max_steps_cycle, never_restart, mat_for_precond,
+                          return_state, dot)
+    while state.i < cap and bool(over_threshold(state.r)):
         pa = matvec(state.p)
         denom = dot(state.p, pa)
         indefinite = denom < -_MIN_FLOAT
@@ -381,6 +463,41 @@ def cg_loop(
         state = CGState(state.i + 1, v, r, p, new_rz)
     converged = torch.logical_not(torch.any(0.5 * _row_sq(state.r) > threshold))
     steps = torch.tensor(state.i, dtype=torch.int32, device=device)
+    stats = CGStats(steps=steps, error=0.5 * state.rz, converged=converged)
+    if return_state:
+        return state.v, stats, state
+    return state.v, stats
+
+
+def _gang_loop(matvec, precond_apply, precond_state, b, state: CGState, over_threshold,
+               threshold, cap: int, max_steps_cycle: int, never_restart: bool,
+               mat_for_precond, return_state: bool, dot):
+    """:func:`cg_loop`'s iterations for a gang: every member advances while
+    its own stop rule fails; a member whose rule holds keeps its state."""
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    active = over_threshold(state.r)  # [G]
+    steps = torch.zeros(active.shape, dtype=torch.int32, device=b.device)
+    while state.i < cap and bool(torch.any(active)):
+        pa = matvec(state.p)
+        denom = dot(state.p, pa)
+        indefinite = denom < -_MIN_FLOAT
+        gamma = torch.where(denom <= _MIN_FLOAT, zero, state.rz / denom)
+        v = state.v + gamma * state.p
+        reset = not never_restart and state.i % max_steps_cycle == max_steps_cycle - 1
+        r = b - matvec(v) if reset else state.r - gamma * pa
+        z, new_rz = precond_apply(precond_state, r, mat_for_precond)
+        if reset:
+            p = z
+        else:
+            p = z + torch.where(indefinite | (state.rz <= _MIN_FLOAT), zero,
+                                state.p * new_rz / state.rz)
+        keep = active[:, None, None]
+        state = CGState(state.i + 1, torch.where(keep, v, state.v),
+                        torch.where(keep, r, state.r), torch.where(keep, p, state.p),
+                        torch.where(keep, new_rz, state.rz))
+        steps = steps + active.to(torch.int32)
+        active = torch.logical_and(active, over_threshold(state.r))
+    converged = torch.logical_not(_over_threshold(state.r, threshold))
     stats = CGStats(steps=steps, error=0.5 * state.rz, converged=converged)
     if return_state:
         return state.v, stats, state
@@ -412,8 +529,11 @@ def ir_cg_loop(
     inner iterations are spent; ``steps`` counts the inner iterations."""
     threshold = _targets(b, error_threshold, relative_threshold)
 
+    agree = current_agreement()  # the inner loops run under it too
+
     def unconverged(r):
-        return bool(torch.any(0.5 * _row_sq(r) > threshold))
+        flag = torch.any(0.5 * _row_sq(r) > threshold)
+        return bool(flag if agree is None else agree(flag))
 
     v = v0
     r = b - matvec_hi(v0)
@@ -554,6 +674,16 @@ def _cg_dense_impl(precond_apply: Callable, error_threshold: float, max_iteratio
                    matrix: torch.Tensor, rhs: torch.Tensor, v0: torch.Tensor,
                    precond_state) -> Tuple[torch.Tensor, CGStats]:
     _check_supported(matvec_impl, dot_name)
+    if matrix.dim() == 3 and (matvec_impl not in _GANG_BATCHED
+                              or not (precond_state == () or precond_apply in _GANG_APPLIES)):
+        # Member by member: B2 (one launch per member and solve, sized to
+        # the SM count), the bf16 routes, and the preconditioners whose
+        # apply does not broadcast over a gang.
+        outs = [_cg_dense_impl(precond_apply, error_threshold, max_iterations,
+                               max_steps_cycle, dot_name, matvec_impl, relative, matrix[g],
+                               rhs[g], v0[g], _member_state(precond_state, g))
+                for g in range(matrix.shape[0])]
+        return _stack_solves(outs)
     if matvec_impl == "pallas_resident":
         # The JAX eligibility rule: the whole solve runs in B2 only for the
         # identity preconditioner, the standard dot, no restart and an
@@ -635,6 +765,7 @@ class _CGDense(torch.autograd.Function):
                                          precond_state)
         ctx.config = config
         ctx.precond_state = precond_state
+        ctx.agree = current_agreement()
         ctx.save_for_backward(matrix, solution)
         ctx.mark_non_differentiable(stats.steps, stats.error, stats.converged)
         return solution, stats.steps, stats.error, stats.converged
@@ -643,10 +774,26 @@ class _CGDense(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dx, *_stat_grads):
         matrix, solution = ctx.saved_tensors
-        db, _ = _cg_dense_impl(ctx.config[0], *ctx.config[1:], matrix, dx,
-                               torch.zeros_like(dx), ctx.precond_state)
-        da = -solution.T @ db if ctx.needs_input_grad[1] else None
+        with agreed_stop_of(ctx.agree):
+            db, _ = _cg_dense_impl(ctx.config[0], *ctx.config[1:], matrix, dx,
+                                   torch.zeros_like(dx), ctx.precond_state)
+        da = -solution.mT @ db if ctx.needs_input_grad[1] else None
         return None, da, db, None, None
+
+
+def _member_state(state, g: int):
+    """Member ``g``'s slice of a gang-stacked preconditioner state."""
+    if isinstance(state, dict):
+        return {k: v[g] for k, v in state.items()}
+    return tuple(t[g] for t in state)
+
+
+def _stack_solves(outs) -> Tuple[torch.Tensor, CGStats]:
+    """Per-member ``(solution, CGStats)`` stacked on a leading gang axis."""
+    return (torch.stack([o[0] for o in outs]),
+            CGStats(steps=torch.stack([torch.as_tensor(o[1].steps) for o in outs]),
+                    error=torch.stack([o[1].error for o in outs]),
+                    converged=torch.stack([torch.as_tensor(o[1].converged) for o in outs])))
 
 
 def conjugate_gradient(
@@ -782,8 +929,16 @@ class ConjugateGradient:
         initial_solution: Optional[torch.Tensor] = None,
         preconditioner=None,
     ) -> Tuple[torch.Tensor, CGStats]:
-        rhs_t = rhs.T
-        v0 = torch.zeros_like(rhs_t) if initial_solution is None else initial_solution.T
+        """Column convention; a gang takes ``matrix [G, n, n]`` and ``rhs [G,
+        n, m]``.  The bf16 routes' envelope is checked member by member."""
+        if matrix.dim() == 3 and self.matvec_impl in ("bf16_ir", "bf16_ru"):
+            outs = [self.solve_with_stats(matrix[g], rhs[g],
+                                          None if initial_solution is None
+                                          else initial_solution[g], preconditioner)
+                    for g in range(matrix.shape[0])]
+            return _stack_solves(outs)
+        rhs_t = rhs.mT
+        v0 = torch.zeros_like(rhs_t) if initial_solution is None else initial_solution.mT
         max_iterations, max_steps_cycle = self.limits(matrix.shape[-1])
         solution, stats = conjugate_gradient(
             matrix, rhs_t, v0, self.error_threshold,
@@ -792,7 +947,7 @@ class ConjugateGradient:
             dot=self.dot, matvec_impl=self.check_bf16_envelope(matrix),
             relative_threshold=self.relative_threshold,
         )
-        return solution.T, stats
+        return solution.mT, stats
 
     def __call__(self, matrix: torch.Tensor, rhs: torch.Tensor,
                  initial_solution: Optional[torch.Tensor] = None,

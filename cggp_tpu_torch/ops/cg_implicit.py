@@ -31,6 +31,7 @@ from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from cggp_tpu_torch.ops.cg import (CGStats, cg_loop, precond_apply_or_identity,
+                                   agreed_stop_of, current_agreement,
                                    spectral_precond_state)
 from cggp_tpu_torch.ops.kernels import Kernel
 from cggp_tpu_torch.ops.linalg import pivoted_cholesky_matfree
@@ -201,6 +202,7 @@ class _ImplicitSolve(torch.autograd.Function):
         solution, stats = solver.run(kp, z, lam, mask, rhs, precond_state)
         ctx.solver, ctx.kp_names, ctx.mask, ctx.precond_state = (solver, kp_names, mask,
                                                                   precond_state)
+        ctx.agree = current_agreement()
         ctx.save_for_backward(solution, z, lam, *kp_values)
         ctx.mark_non_differentiable(stats.steps, stats.error, stats.converged)
         return solution, stats.steps, stats.error, stats.converged
@@ -211,7 +213,8 @@ class _ImplicitSolve(torch.autograd.Function):
         solution, z, lam, *kp_values = ctx.saved_tensors
         kp = dict(zip(ctx.kp_names, kp_values))
         solver = ctx.solver
-        w, _ = solver.run(kp, z, lam, ctx.mask, dx, ctx.precond_state)
+        with agreed_stop_of(ctx.agree):
+            w, _ = solver.run(kp, z, lam, ctx.mask, dx, ctx.precond_state)
         needs = (*ctx.needs_input_grad[7:], ctx.needs_input_grad[5], ctx.needs_input_grad[6])
         grads = matvec_vjp(solver.blocked, kp, z, lam, ctx.mask, solution, w, needs)
         kp_bar, z_bar, lam_bar = grads[:-2], grads[-2], grads[-1]

@@ -38,8 +38,14 @@ def scaled_squared_distance(x_scaled: torch.Tensor,
         y_scaled = x_scaled
     xs2 = torch.sum(torch.square(x_scaled), dim=-1, keepdim=True)  # [N, 1]
     ys2 = torch.sum(torch.square(y_scaled), dim=-1, keepdim=True)  # [M, 1]
-    cross = torch.matmul(x_scaled, y_scaled.T)
-    r2 = xs2 + ys2.T - 2.0 * cross
+    if x_scaled.dim() == 3:
+        # A gang: one product per member, the bits of the member's own Gram
+        # (a batched product sums the depth in another order, and CG past M
+        # steps magnifies an ulp of the system).
+        cross = torch.stack([torch.matmul(xg, yg.T) for xg, yg in zip(x_scaled, y_scaled)])
+    else:
+        cross = torch.matmul(x_scaled, y_scaled.T)
+    r2 = xs2 + ys2.mT - 2.0 * cross
     return torch.clamp(r2, min=0.0)
 
 
@@ -104,17 +110,29 @@ class Kernel:
 
     def K(self, params: KernelParams, x: torch.Tensor,
           x2: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Dense Gram matrix ``K(x, x2)`` of shape [N, M]."""
+        """Dense Gram matrix ``K(x, x2)`` of shape [N, M].
+
+        A gang (gang training) passes ``x [G, N, D]`` with every parameter
+        stacked on a leading [G] axis (the variance [G] instead of 0-d) and
+        gets [G, N, M]."""
         ell = self.lengthscales(params)
+        variance = self.variance(params)
+        if variance.dim() == 1 and x.dim() == 3:
+            ell = ell.reshape(x.shape[0], 1, -1)
+            variance = variance.reshape(x.shape[0], 1, 1)
         xs = x / ell
         ys = None if x2 is None else x2 / ell
         r2 = scaled_squared_distance(xs, ys)
-        return kernel_value_from_r2(self.name, r2, self.variance(params))
+        return kernel_value_from_r2(self.name, r2, variance)
 
     def K_diag(self, params: KernelParams, x: torch.Tensor) -> torch.Tensor:
-        """Diagonal of ``K(x, x)``: constant ``variance`` for stationary kernels."""
+        """Diagonal of ``K(x, x)``: constant ``variance`` for stationary kernels
+        ([G, N] for a gang's ``x [G, N, D]``)."""
         # A broadcast of the 0-d variance: no host read of its value.
-        return self.variance(params).to(x.dtype).expand(x.shape[:-1])
+        variance = self.variance(params).to(x.dtype)
+        if variance.dim() == 1 and x.dim() == 3:
+            variance = variance.reshape(x.shape[0], 1)
+        return variance.expand(x.shape[:-1])
 
 
 def SquaredExponential(positive_lower: float = 1e-6) -> Kernel:

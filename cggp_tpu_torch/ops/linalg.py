@@ -24,12 +24,16 @@ def pivoted_cholesky(matrix: torch.Tensor, rank: int) -> torch.Tensor:
 
     Each step picks the largest remaining diagonal (the greedy trace-error
     pivot).  Exhausted or numerically non-positive pivots contribute zero
-    columns, so ``rank`` above the numerical rank is safe."""
+    columns, so ``rank`` above the numerical rank is safe.  A gang's
+    stacked matrices ``[G, n, n]`` give ``[G, n, rank]``, one factor a
+    member."""
+    n = matrix.shape[-1]
 
     def row_fn(pivot):
-        return matrix.index_select(0, pivot)[0]
+        index = pivot[..., None].expand(*pivot.shape, n)
+        return torch.gather(matrix, -2, index)[..., 0, :]
 
-    return pivoted_cholesky_matfree(row_fn, torch.diagonal(matrix), rank)
+    return pivoted_cholesky_matfree(row_fn, torch.diagonal(matrix, dim1=-2, dim2=-1), rank)
 
 
 def pivoted_cholesky_matfree(row_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -39,26 +43,30 @@ def pivoted_cholesky_matfree(row_fn: Callable[[torch.Tensor], torch.Tensor],
 
     ``pivot`` is a one-element int64 tensor on the device: the pivot is
     picked by ``argmax`` there (ties go to the first index, as in
-    ``jnp.argmax``) and nothing is read back to the host per step."""
-    n = diag.shape[0]
+    ``jnp.argmax``) and nothing is read back to the host per step.  A
+    gang's diagonals ``[G, n]`` take pivots ``[G, 1]`` and rows ``[G, n]``
+    and give ``[G, n, rank]``."""
+    n = diag.shape[-1]
     dtype, device = diag.dtype, diag.device
     # Relative pivot floor: once the residual diagonal falls to rounding
     # noise, further columns are amplified garbage (each is divided by
     # sqrt(pivot)); stop contributing instead.
     eps = torch.finfo(dtype).eps
-    tiny = 10.0 * eps * torch.clamp(torch.max(diag), min=1e-30)
-    ell = torch.zeros((n, rank), dtype=dtype, device=device)
+    tiny = 10.0 * eps * torch.clamp(torch.amax(diag, dim=-1, keepdim=True), min=1e-30)
+    ell = torch.zeros((*diag.shape[:-1], n, rank), dtype=dtype, device=device)
     d = diag.clone()
     for i in range(rank):
-        pivot = torch.argmax(d).reshape(1)
-        val = d.index_select(0, pivot)[0]
+        pivot = torch.argmax(d, dim=-1, keepdim=True)
+        val = torch.gather(d, -1, pivot)
         row = row_fn(pivot)
-        cross = torch.mv(ell, ell.index_select(0, pivot)[0])
+        pivot_row = torch.gather(ell, -2, pivot[..., None].expand(*pivot.shape, rank))
+        cross = (torch.mv(ell, pivot_row[0]) if ell.dim() == 2
+                 else torch.matmul(ell, pivot_row.mT)[..., 0])
         inv_sqrt = torch.rsqrt(torch.maximum(val, tiny))
         col = torch.where(val > tiny, (row - cross) * inv_sqrt, torch.zeros_like(row))
-        ell[:, i] = col
+        ell[..., i] = col
         d = torch.clamp(d - torch.square(col), min=0.0)
-        d.index_fill_(0, pivot, 0.0)
+        d.scatter_(-1, pivot, 0.0)
     return ell
 
 

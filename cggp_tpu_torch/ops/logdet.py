@@ -147,12 +147,13 @@ class _EvalLogdetFromSolves(torch.autograd.Function):
     @staticmethod
     def forward(ctx, matrix, probes, solved_probes):
         ctx.save_for_backward(probes, solved_probes)
-        return torch.zeros((), dtype=probes.dtype, device=probes.device)
+        # One zero per system: 0-d, or [G] for a gang's stacked systems.
+        return torch.zeros(probes.shape[:-2], dtype=probes.dtype, device=probes.device)
 
     @staticmethod
     def backward(ctx, df):
         probes, solved_probes = ctx.saved_tensors
-        da = (df / probes.shape[-1]) * (solved_probes @ probes.T)
+        da = (df[..., None, None] / probes.shape[-1]) * (solved_probes @ probes.mT)
         return da, None, None
 
 

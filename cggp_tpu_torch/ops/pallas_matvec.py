@@ -131,29 +131,36 @@ def matmul_3xtf32_emulated(a: torch.Tensor, b: torch.Tensor, truncate: bool = Fa
 
 
 def pallas_matvec(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """``p @ A`` for symmetric ``A``: ``p [R, M]``, ``A [M, M]`` -> ``[R, M]``."""
-    if not isinstance(p, torch.Tensor) or p.dim() != 2:
-        raise ValueError(f"p must be an [R, M] tensor, got {getattr(p, 'shape', type(p))}")
-    rows, m = p.shape
-    check_operand("p", p, (rows, m))
-    check_operand("a", a, (m, m))
+    """``p @ A`` for symmetric ``A``: ``p [R, M]``, ``A [M, M]`` -> ``[R, M]``.
+
+    A gang of G systems, ``p [G, R, M]`` and ``A [G, M, M]``, runs in one
+    launch (the gang axis on the grid's third dimension), each member's
+    output bitwise that of a launch on the member alone."""
+    if not isinstance(p, torch.Tensor) or p.dim() not in (2, 3):
+        raise ValueError(f"p must be an [R, M] or [G, R, M] tensor, got "
+                         f"{getattr(p, 'shape', type(p))}")
+    *lead, rows, m = p.shape
+    check_operand("p", p, (*lead, rows, m))
+    check_operand("a", a, (*lead, m, m))
     if check_device(p, a) == "cpu":
         return pallas_matvec_plain(p, a)
-    out = torch.empty((rows, m), dtype=torch.float32, device=p.device)
-    if rows == 0 or m == 0:
+    gang = lead[0] if lead else 1
+    out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    if gang == 0 or rows == 0 or m == 0:
         return out
     from cggp_tpu_torch import _build
 
     lib = _build.load()
-    # Above 8 rows the kernel first splits A into its TF32 halves, tile by
-    # tile, in this scratch buffer (8 MB at M = 989).
+    # Above 8 rows the kernel first splits each member's A into its TF32
+    # halves, tile by tile, in this scratch buffer (8 MB a member at M = 989).
     scratch = None
     if rows > 8:
-        words = lib.cggp_pallas_matvec_scratch_words(rows, m)
+        words = gang * lib.cggp_pallas_matvec_scratch_words(rows, m)
         scratch = torch.empty((words,), dtype=torch.int32, device=p.device)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    _build.check(lib.cggp_pallas_matvec(p.data_ptr(), a.data_ptr(), out.data_ptr(), rows, m,
-                                        None if scratch is None else scratch.data_ptr(), stream),
+    _build.check(lib.cggp_pallas_matvec(p.data_ptr(), a.data_ptr(), out.data_ptr(), gang, rows,
+                                        m, None if scratch is None else scratch.data_ptr(),
+                                        stream),
                  "pallas_matvec")
     pallas_matvec.launches += 1
     return out

@@ -2,6 +2,10 @@
 batched serving (port of ``cggp_tpu/training``)."""
 
 from cggp_tpu_torch.training.batching import minibatch_iterator
+from cggp_tpu_torch.training.gang import (gang_eval_rmse_nlpd, init_gang_adam,
+                                          make_adam_gang_multi_step, make_gang_predict,
+                                          shard_gang, stack_pytrees, train_gang_adam,
+                                          unstack_pytree)
 from cggp_tpu_torch.training.monitor import Monitor
 from cggp_tpu_torch.training.optimize import (adam, bind_predict_fn, create_monitor,
                                               make_adam_multi_step, make_adam_step,
@@ -17,6 +21,14 @@ from cggp_tpu_torch.training.optimize import (adam, bind_predict_fn, create_moni
 
 __all__ = [
     "minibatch_iterator",
+    "gang_eval_rmse_nlpd",
+    "make_gang_predict",
+    "init_gang_adam",
+    "make_adam_gang_multi_step",
+    "shard_gang",
+    "stack_pytrees",
+    "train_gang_adam",
+    "unstack_pytree",
     "Monitor",
     "adam",
     "bind_predict_fn",

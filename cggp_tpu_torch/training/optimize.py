@@ -58,8 +58,15 @@
   params: the padded net growth and statistics merge, the parameter swap
   and the serving cache's rebuild, with no shape change.
 
-Not ported yet, raising ``NotImplementedError`` where it is a switch of a
-ported function: ``mesh`` training and serving (ROADMAP Queue A item 12).
+* ``mesh`` (a :class:`~cggp_tpu_torch.parallel.mesh.Mesh`): the trainer's
+  hybrid data- and tensor-parallel step (each rank the data term of its
+  rows of every batch, through
+  :func:`~cggp_tpu_torch.parallel.data_parallel.make_data_parallel_loss`;
+  a sharded model keeps its own collectives) and data-parallel serving
+  in :func:`predict_in_batches` and :func:`posterior_predict_scan` (each
+  rank serves its rows of every batch, the CG stop decisions agreed, the
+  rows gathered), each rank called with the same arguments and returning
+  the same result.
 """
 
 from __future__ import annotations
@@ -325,8 +332,16 @@ def train_using_adam_and_update(
                 "update_during_training (host, between calls), not both — they would "
                 "re-cluster twice")
     if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel) training arrives with the parallel "
-                                  "slice of the port (ROADMAP Queue A item 12)")
+        if steps_per_call > 1:
+            raise ValueError(
+                "mesh (data-parallel batches) composes with steps_per_call=1 only — the "
+                "K-step call gathers its batches from the full dataset")
+        # The effective batch: the index stream clamps it to the dataset size.
+        effective_batch = min(int(batch_size), int(data[0].shape[0]))
+        if effective_batch % mesh.size != 0:
+            raise ValueError(
+                f"effective batch size {effective_batch} (min of batch_size {batch_size} and "
+                f"dataset rows {data[0].shape[0]}) must divide over the {mesh.size}-rank mesh")
 
     x = data[0]
     k = max(int(steps_per_call), 1)
@@ -341,7 +356,19 @@ def train_using_adam_and_update(
                                                     recluster_fn=recluster_fn)
         return step_cache[mode]
 
-    multi_step = step_for(current_mode)
+    if mesh is not None:
+        # Each step's batch sharded by rows, then the data-parallel loss.
+        from cggp_tpu_torch.parallel.data_parallel import make_data_parallel_loss
+        from cggp_tpu_torch.parallel.mesh import replicate, shard_batch
+
+        dp_loss = make_data_parallel_loss(loss_fn, mesh)
+        multi_step = make_adam_multi_step(
+            lambda p, batch, k: dp_loss(p, shard_batch(mesh, *batch), k), optimizer, data,
+            trainable_mask)
+        params = replicate(mesh, params)
+        opt_state = replicate(mesh, opt_state)
+    else:
+        multi_step = step_for(current_mode)
     idx_chunks = minibatch_index_iterator(data_seed, x.shape[0], batch_size, k, device=x.device)
     num_chunks = -(-int(iterations) // k)
     record_chunks = max(int(scalar_record_step) // k, 1)
@@ -383,6 +410,32 @@ def train_using_adam_and_update(
     if monitor is not None:
         monitor.flush()
     return params
+
+
+def _row_server(mesh):
+    """``on_rows(fn, xb)``: ``fn(xb)``; with a mesh, ``fn`` of this rank's
+    rows of ``xb`` (its CG stop decisions agreed across the ranks), each
+    output's rows gathered on every rank."""
+    if mesh is None:
+        return lambda fn, xb: fn(xb)
+    from cggp_tpu_torch.ops.cg import agreed_stop
+    from cggp_tpu_torch.parallel.mesh import agree_max, all_gather_rows, shard_batch
+
+    def on_rows(fn, xb):
+        with agreed_stop(lambda flag: agree_max(mesh, flag)):
+            out = fn(shard_batch(mesh, xb))
+        if isinstance(out, tuple):
+            return tuple(None if o is None else all_gather_rows(mesh, o) for o in out)
+        return all_gather_rows(mesh, out)
+
+    return on_rows
+
+
+def _mesh_batch(batch_size: int, n: int, mesh) -> int:
+    """A serving batch rounded up to a multiple of the mesh size (rounding
+    down could silently drop ranks)."""
+    d = mesh.size
+    return min(-(-batch_size // d) * d, -(-n // d) * d)
 
 
 def _step_generator(key: torch.Generator, device: torch.device) -> torch.Generator:
@@ -1022,20 +1075,26 @@ def posterior_predict_scan(model, post, x, batch_size: int = 8192, mean_only: bo
     ``lax.map`` program.  A CG cache (no Cholesky factor and no LOVE rows)
     warns: its solves read their stop rule on the host every step, so the
     sweep is no freer of host reads than :func:`predict_in_batches`' loop.
-    Returns ``(mean [N, P], var [N, 1])``, or ``(mean, None)``."""
-    if mesh is not None:
-        raise NotImplementedError("posterior_predict_scan: mesh serving arrives with the "
-                                  "parallel slice of the port (ROADMAP Queue A item 12)")
+    Returns ``(mean [N, P], var [N, 1])``, or ``(mean, None)``.
+
+    ``mesh``: each rank serves its rows of every block (the block rounded up
+    to a multiple of the mesh size), the rows gathered on every rank; the
+    model must not run collectives of its own."""
     if not mean_only and _posterior_serves_via_cg(post):
         warnings.warn("posterior_predict_scan: this posterior serves through CG (no chol/LOVE "
                       "cache): each block's solve reads its stop rule on the host, so the "
                       "sweep saves nothing over predict_in_batches' loop", RuntimeWarning)
     n = x.shape[0]
-    blocks = pad_rows_to_blocks(x, min(int(batch_size), n))
+    batch_size = min(int(batch_size), n)
+    if mesh is not None:
+        batch_size = _mesh_batch(batch_size, n, mesh)
+    on_rows = _row_server(mesh)
+    blocks = pad_rows_to_blocks(x, batch_size)
     if mean_only:
-        mu = torch.stack([model.posterior_mean(post, xb) for xb in blocks])
+        mu = torch.stack([on_rows(lambda r: model.posterior_mean(post, r), xb) for xb in blocks])
         return mu.reshape(-1, mu.shape[-1])[:n], None
-    outs = [model.posterior_predict(post, xb, full_cov=False) for xb in blocks]
+    outs = [on_rows(lambda r: model.posterior_predict(post, r, full_cov=False), xb)
+            for xb in blocks]
     mu = torch.stack([m for m, _ in outs])
     var = torch.stack([v for _, v in outs])
     return mu.reshape(-1, mu.shape[-1])[:n], var.reshape(-1, var.shape[-1])[:n]
@@ -1069,10 +1128,21 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
     with ``posterior_predict_chunked`` serves its mean and variance batches
     through it.  ``scan``: ``"auto"`` sends solve-free caches (Cholesky,
     LOVE, or ``mean_only``) through :func:`posterior_predict_scan`,
-    ``True`` every cache, ``False`` none."""
+    ``True`` every cache, ``False`` none.
+
+    ``mesh`` serves data-parallel: every rank builds the cache and serves
+    its rows of each batch (the batch rounded up to a multiple of the mesh
+    size), its CG stop decisions agreed, the rows gathered on every rank.
+    It needs the posterior-cache path and a model without collectives of
+    its own (not ``ShardedCGGP``)."""
     if mesh is not None:
-        raise NotImplementedError("predict_in_batches: mesh serving arrives with the parallel "
-                                  "slice of the port (ROADMAP Queue A item 12)")
+        if not use_posterior:
+            raise ValueError("mesh serving requires the posterior-cache path")
+        if getattr(model, "mesh", None) is not None:
+            raise ValueError(
+                f"{type(model).__name__} runs its own mesh collectives; data-parallel query "
+                "sharding composes with single-device models (CGGP/ImplicitCGGP/Cholesky "
+                "families) only")
     takes_data = hasattr(model, "posterior") and _posterior_takes_data(model)
     posterior_capable = (use_posterior and hasattr(model, "posterior")
                          and (train_data is not None) == takes_data)
@@ -1101,6 +1171,9 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
         scan_batch = 8192
     batch_size = min(int(batch_size), n)
     scan_batch = min(int(scan_batch), n)
+    if mesh is not None:
+        batch_size = _mesh_batch(batch_size, n, mesh)
+    on_rows = _row_server(mesh)
     num_batches = -(-n // batch_size)
     pad = num_batches * batch_size - n
     if pad:
@@ -1156,17 +1229,17 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
 
     if chunk_iterations > 0 and not mean_only and hasattr(model, "posterior_predict_chunked") \
             and _posterior_serves_via_cg(post):
-        outs = [model.posterior_predict_chunked(post, xb, chunk_iterations=chunk_iterations)
-                for xb in batches]
+        outs = [on_rows(lambda r: model.posterior_predict_chunked(
+                    post, r, chunk_iterations=chunk_iterations), xb) for xb in batches]
         return torch.cat([m for m, _ in outs])[:n], torch.cat([v for _, v in outs])[:n]
     solve_free = mean_only or not _posterior_serves_via_cg(post)
     if scan is True or (scan == "auto" and solve_free):
         return posterior_predict_scan(model, post, x, batch_size=scan_batch,
-                                      mean_only=mean_only)
+                                      mean_only=mean_only, mesh=mesh)
     if mean_only:
-        means = [model.posterior_mean(post, xb) for xb in batches]
+        means = [on_rows(lambda r: model.posterior_mean(post, r), xb) for xb in batches]
         return torch.cat(means)[:n], None
-    outs = [model.posterior_predict(post, xb) for xb in batches]
+    outs = [on_rows(lambda r: model.posterior_predict(post, r), xb) for xb in batches]
     return torch.cat([m for m, _ in outs])[:n], torch.cat([v for _, v in outs])[:n]
 
 

@@ -5,6 +5,19 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+or with ``--groups a,b`` to run ``env``, ``build``, ``setup`` and
+``setup_train`` (the shared setups) and only the named phase groups (an
+unknown name exits 2)::
+
+    python3 chip_smoke.py --groups gang,parallel
+
+The groups (``GROUPS``), in the order a run takes them: ``serving`` (B1,
+B2 and dense serving, items 4-6, and B3 with the matrix-free serving,
+items 9-13), ``baseline`` (the baselines of item 6), ``e2e`` (the dense
+training of item 7 and item 8), ``implicit_training`` (item 14),
+``itergpr`` (item 15), ``solver_family`` (16), ``cli`` (17),
+``covernet_streaming`` (18), ``gang`` (19) and ``parallel`` (20).
+
 Phases, each printing one JSON line of its own:
 
 1. ``env``    the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -149,11 +162,11 @@ Phases, each printing one JSON line of its own:
     ``train_multi_implicit``  ``make_adam_multi_step`` at K = 3 through B3,
               its chunk against 3 single steps, then a chunk with the factor
               frozen (``precond_fn=model.precond_state``), launches counted.
-    ``train_loop_implicit``  ``train_using_adam_and_update`` for 10 steps at
-              K = 5 through B3, a native cover-tree update at resolution 0.15
+    ``train_loop_implicit``  ``train_using_adam_and_update`` for 4 steps at
+              K = 2 through B3, a native cover-tree update at resolution 0.15
               each chunk re-padded by ``assign_clusters``, the metrics (first
-              8192 test points), parameter and CG-statistics callbacks at
-              ``record_step=5``; launches read apart for the steps, the
+              2048 test points), parameter and CG-statistics callbacks at
+              ``record_step=2``; launches read apart for the steps, the
               callbacks and ``update_fn``.
     ``check_train_implicit_jax``  B3's first-step CG steps within max(3, 5 %)
               of the JAX package's (``JAX_IMPLICIT_TRAIN_STEP0``, from
@@ -280,6 +293,33 @@ Phases, each printing one JSON line of its own:
               processes: JAX's result keys, finite metrics and parameters,
               the mask within the capacity.
 
+19. ``gang_b1``  B1 with the gang on its grid at [8, 2059, 989]: one launch
+              bitwise equal to eight per-member launches, within 2x the
+              plain batched product's error from fp64, timed against the
+              eight launches and the plain version.
+    ``gang_reference_*`` / ``gang_train_{m256,m989}_{xla,xla_high}``  gang
+              training (``training/gang.py``, G = 8, K = 10 (25 in the script),
+              ``scripts/gang_measure.py``'s solve: pivoted Cholesky rank 128,
+              batched, relative 1e-6) on the E2E split at M = 256 (batch
+              1024) and 989 (batch 2048) through the batched IEEE fp32
+              product and ``"xla_high"`` (batched B1): solo and gang aggregate steps/s, member
+              0's first call held to its solo call (at most 2x the fp32
+              ``"xla"`` solo call's gap from float64), launches, peak memory.
+    ``gang_b2``  the M = 989 gang through B2, one launch per member and
+              solve: exactly 2 G launches a step.
+20. ``parallel_mesh``  ``make_mesh(1)``: a one-rank NCCL group.
+    ``sharded_cg_config5``  ``make_sharded_cg`` on ``tests/test_parallel.py``'s
+              M = 8192 system against the dense ``"xla"`` loop and float64.
+    ``train_sharded_cggp``  ``ShardedCGGP`` at the matrix-free width (M =
+              9576 at capacity 10240, R = 2059): the first step against
+              float64 and ``ImplicitCGGP``'s blocked route, 3 timed steps.
+    ``train_dp_hybrid`` / ``serve_mesh``  the trainer's and
+              ``predict_in_batches``' mesh paths at one rank: bitwise the
+              single-device results.
+    ``sharded_itergpr``  ``ShardedIterGPR`` at N = 32,768 (reduced from
+              131,072: the one rank's row block) against ``IterGPR``'s
+              blocked route and float64.
+
 Bounds (``bound_parts``): the least time of an fp32-accurate result, the
 smaller of the fp32 FMA time and three TF32 passes on the tensor cores, then
 the larger of that, the special functions and the bytes; ``simt_bound_ms``
@@ -296,6 +336,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import faulthandler
 import hashlib
@@ -457,11 +498,11 @@ IMPLICIT_TRAIN_PROBE_SEED = 5  # the probes: a generator on the card, reseeded p
 IMPLICIT_REF_THRESHOLD = 1e-12
 IMPLICIT_REF_MAX_CG = 5000
 IMPLICIT_MULTI_K = 3  # train_multi_implicit's chunk (5 before the device-net phases came)
-IMPLICIT_LOOP_K = 5  # train_loop_implicit's steps_per_call
-IMPLICIT_LOOP_ITERATIONS = 10
-IMPLICIT_LOOP_RECORD_STEP = 5
+IMPLICIT_LOOP_K = 2  # train_loop_implicit's steps_per_call (5 before the gang and parallel phases)
+IMPLICIT_LOOP_ITERATIONS = 4  # two calls, two monitor records (10 before, PERF.md §4)
+IMPLICIT_LOOP_RECORD_STEP = 2
 IMPLICIT_SELECT_RES = 0.15  # the committed selection's resolution
-IMPLICIT_METRICS_POINTS = 4096  # 8192 before the device-net phases came (PERF.md §4)
+IMPLICIT_METRICS_POINTS = 2048  # 8192, then 4096, cut for the budget (PERF.md §4)
 # The JAX package's fp32 values for the first matrix-free training step (the
 # train_implicit_pallas configuration on the blocked XLA route), on the CPU,
 # from tests/jax_implicit_train_reference.py fed this script's probes and
@@ -4427,7 +4468,652 @@ def covernet_streaming_phases(ctx) -> None:
               "phase_wall_s": ph.elapsed()})
 
 
-def main() -> int:
+# -- gang training and the parallel package --------------------------------
+
+GANG_SIZE = 8
+GANG_K = 10  # steps a call, solo and gang (scripts/gang_measure.py: 25; cut for the budget)
+GANG_CELLS = (("m256", 256, 1024), ("m989", None, 2048))  # (name, M from the first rows, batch)
+GANG_LR = 0.01
+GANG_SEED = 11  # index streams: member g's numpy seed is GANG_SEED + g
+GANG_PROBE_SEED = 12  # member g's probe generator: GANG_PROBE_SEED + g
+GANG_B2_STEPS = 2  # gang steps through B2, member by member, at M = 989
+# scripts/gang_measure.py's solve: pivoted Cholesky, relative 1e-6, 5 probes
+GANG_PROBES = 5
+GANG_PRECOND_RANK = 128
+GANG_THRESHOLD = 1e-6
+CONFIG5_M = 8192
+CONFIG5_SEED = 13
+SHARDED_TRAIN_STEPS = 3
+SHARDED_TRAIN_SEED = 14
+SHARDED_ITERGPR_N = 32_768  # 131,072 in itergpr_phases: the [N, N] row block is 68.7 GB there
+HYBRID_STEPS = 4
+HYBRID_SEED = 15
+
+
+def _flat_tensors(params):
+    """A parameter dict's leaves by ``"group/name"``."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.update({f"{k}/{kk}": vv for kk, vv in v.items()})
+        else:
+            out[k] = v
+    return out
+
+
+def _trajectory_gap(losses, params, ref_losses, ref_params) -> float:
+    """The largest relative gap of a chunk's losses (each) and of its final
+    parameters (each leaf's norm), from a reference run of the chunk."""
+    gaps = [float(((losses.double() - ref_losses.double()).abs()
+                   / ref_losses.double().abs()).max())]
+    ref_flat = _flat_tensors(ref_params)
+    for name, value in _flat_tensors(params).items():
+        ref = ref_flat[name].double()
+        norm = float(torch.linalg.vector_norm(ref))
+        gaps.append(float(torch.linalg.vector_norm(value.double() - ref)) / max(norm, 1e-300))
+    return max(gaps)
+
+
+def within_twice_route(gaps, route_gaps) -> bool:
+    """Each of ``gaps`` (a route's relative gaps from float64, the loss and
+    each gradient) at most 2x the reference route's gap for that quantity."""
+    return all(gaps[k] <= 2.0 * route_gaps[k] for k in gaps)
+
+
+def gang_phases(ctx) -> None:
+    """Gang training (``training/gang.py``) on the E2E training split, G = 8
+    replicas (lengthscales x 0.8 + 0.1 g, the JAX package's
+    ``scripts/gang_measure.py`` sweep), K = 10 steps a call (the script: 25;
+    cut for the time budget), adam(0.01), that
+    script's solve (pivoted Cholesky of rank 128, relative 1e-6, at most M
+    steps, 5 probes), its factors built and applied batched over the gang:
+
+    * ``gang_b1``: B1 with the gang on its grid at the training shape [8,
+      2059, 989]: one launch bitwise equal to eight per-member launches,
+      against the plain batched product and fp64, timed against the eight
+      launches, the plain version and ``torch.matmul``.
+    * ``gang_train_{m256,m989}_{xla,xla_high}``: the cells M = 256
+      (``labels_update_inducing_parameters`` from the first 256 rows, batch
+      1024) and M = 989 (the committed selection, batch 2048), through the
+      batched IEEE fp32 product and through ``"xla_high"`` (the script's
+      route: batched B1 on a float32 system): solo steps/s of
+      member 0 (``make_adam_multi_step``) and the gang's aggregate steps/s
+      (G K / wall), each over its first call (one call each, for the time
+      budget), the gang's member 0 held to the solo call (the largest
+      relative gap of its losses and parameters at most 2x the fp32
+      ``"xla"`` solo call's from float64), every loss finite, launches and
+      peak memory over the gang's call.
+    * ``gang_b2``: the same gang at M = 989 through B2, one launch per member
+      and solve (no preconditioner, absolute 1e-8), 2 steps: launches
+      exactly 2 G a step."""
+    from cggp_tpu_torch.models.cggp import CGGP
+    from cggp_tpu_torch.ops.cg import ConjugateGradient
+    from cggp_tpu_torch.ops.kernels import Matern32
+    from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve
+    from cggp_tpu_torch.ops.pallas_gram import gram_matvec, kuu_matvec
+    from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec, pallas_matvec_plain
+    from cggp_tpu_torch.selection.update import labels_update_inducing_parameters
+    from cggp_tpu_torch.training.batching import minibatch_index_iterator
+    from cggp_tpu_torch.training.gang import (init_gang_adam, make_adam_gang_multi_step,
+                                              stack_pytrees, unstack_pytree)
+    from cggp_tpu_torch.training.optimize import adam, make_adam_multi_step
+
+    device, card_line, kernels = ctx["device"], ctx["card_line"], ctx["kernels"]
+    x_np, y_np = ctx["data"]
+    iv, u, counts = ctx["selection"]
+    counted = (pallas_matvec, pallas_cg_solve, gram_matvec, kuu_matvec)
+    g_size, k_steps = GANG_SIZE, GANG_K
+
+    def launches():
+        return {f.__name__: f.launches for f in counted}
+
+    def reset():
+        for f in counted:
+            f.launches = 0
+
+    x = torch.as_tensor(x_np, dtype=torch.float32, device=device)
+    y = torch.as_tensor(y_np, dtype=torch.float32, device=device)
+    n = x.shape[0]
+    data64 = (x.double(), y.double())
+
+    def make(route, m=None, plain=False):
+        if plain:  # B2's eligibility: identity preconditioner, absolute threshold
+            return CGGP(kernel=Matern32(), num_data=n, num_probes=TRAIN_PROBES,
+                        conjugate_gradient=ConjugateGradient(CG_THRESHOLD, matvec_impl=route))
+        return CGGP(kernel=Matern32(), num_data=n, num_probes=GANG_PROBES,
+                    precondition="pivchol", precond_rank=GANG_PRECOND_RANK,
+                    conjugate_gradient=ConjugateGradient(GANG_THRESHOLD, max_iterations=m,
+                                                         relative_threshold=True,
+                                                         matvec_impl=route))
+
+    def variants_of(params):
+        out = []
+        for g in range(g_size):
+            p = {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict)
+                     else v.clone()) for k, v in params.items()}
+            p["kernel"]["lengthscales"] = p["kernel"]["lengthscales"] * (0.8 + 0.1 * g)
+            out.append(p)
+        return out
+
+    def streams(batch):
+        return [minibatch_index_iterator(GANG_SEED + g, n, batch, k_steps, device=device)
+                for g in range(g_size)]
+
+    def gens():
+        return [torch.Generator(device=device).manual_seed(GANG_PROBE_SEED + g)
+                for g in range(g_size)]
+
+    # -- gang_b1: the gang axis on B1's grid ---------------------------------
+    with Phase("gang_b1", 90) as ph:
+        m, rows = M_EXPECTED, 1 + 2 * TRAIN_PROBES + TRAIN_BATCH
+        gen = torch.Generator(device=device).manual_seed(GANG_SEED)
+        gm = torch.randn(g_size, m, m, generator=gen, device=device)
+        a = ((gm @ gm.mT) / m + torch.eye(m, device=device)).contiguous()
+        del gm
+        p = torch.randn(g_size, rows, m, generator=gen, device=device)
+        reset()
+        got = pallas_matvec(p, a)
+        one_launch = launches()["pallas_matvec"]
+        each = torch.stack([pallas_matvec(p[g].contiguous(), a[g].contiguous())
+                            for g in range(g_size)])
+        ph.wait()
+        require(one_launch == 1, f"batched B1: {one_launch} launches for one gang call")
+        require(torch.equal(got, each), "batched B1 differs from the per-member launches")
+        plain = pallas_matvec_plain(p, a)
+        exact = p.double() @ a.double()
+        err = float((got - plain).abs().max())
+        err_fp64 = float((got.double() - exact).abs().max())
+        plain_fp64 = float((plain.double() - exact).abs().max())
+        del exact
+        require(err_fp64 <= 2.0 * plain_fp64,
+                f"batched B1: {err_fp64} from fp64, plain fp32 {plain_fp64}")
+        members = [(p[g].contiguous(), a[g].contiguous()) for g in range(g_size)]
+        times = timed_in_turns(ph, {
+            "plain": lambda: pallas_matvec_plain(p, a),
+            "batched": lambda: pallas_matvec(p, a),
+            "separate": lambda: [pallas_matvec(pg, ag) for pg, ag in members]},
+            ("plain", "batched", "separate", "separate", "batched", "plain"), reps=10)
+        nbytes = 4.0 * g_size * (2 * rows * m + m * m)
+        bound, bound_by, _what, parts = bound_parts(nbytes, 2.0 * g_size * rows * m * m,
+                                                    2.0 * g_size * rows * m * m)
+        record = {"gang": g_size, "rows": rows, "m": m, "launches": one_launch,
+                  "bitwise_equal_per_member": True, "max_abs_err_vs_plain": err,
+                  "max_abs_err_fp64": err_fp64, "plain_max_abs_err_fp64": plain_fp64,
+                  "batched_ms": times["batched"], "separate_launches_ms": times["separate"],
+                  "plain_ms": times["plain"], "library_ms": times["plain"],
+                  "library_note": "torch.matmul of the batch in IEEE fp32 is the plain version",
+                  "bound_ms": bound, "bound_by": bound_by, "bound_parts": parts}
+        emit({"phase": "gang_b1", **record, "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        del p, a, got, each, plain, members
+        kernels["pallas_matvec"].update({"gang_batched_ms": min(times["batched"]),
+                                         "gang_separate_ms": min(times["separate"]),
+                                         "gang_plain_ms": min(times["plain"]),
+                                         "gang_bound_ms": bound})
+        if "ms" not in kernels["pallas_matvec"]:  # the serving group did not run
+            kernels["pallas_matvec"].update({
+                "max_abs_err": err, "ms": min(times["batched"]), "plain_ms": min(times["plain"]),
+                "bound_ms": bound, "bound_by": bound_by, "library_ms": min(times["plain"])})
+
+    # -- gang_train: solo against the gang, through "xla" and batched B1 ------
+    gang_launches = {"pallas_matvec": 0, "pallas_cg_solve": 0}
+    for cell, m_first, batch in GANG_CELLS:
+        if m_first is None:
+            sel = tuple(torch.as_tensor(t, dtype=torch.float32, device=device)
+                        for t in (iv, u, counts))
+        else:
+            sel = labels_update_inducing_parameters((x, y), x[:m_first])
+        base = make("xla", 1).init_params(sel[0], pseudo_u=sel[1], cluster_counts=sel[2],
+                                          dtype=torch.float32, device=device)
+        m = int(base["inducing_points"].shape[0])
+        variants = variants_of(base)
+        mask = make("xla", m).trainable_mask(base)
+        first_idx = [next(s) for s in streams(batch)]  # each member's first call
+        # member 0's first call in float64: the yardstick of the fp32 gap
+        with Phase(f"gang_reference_{cell}", 60) as ph:
+            p64 = {k: ({kk: vv.double() for kk, vv in v.items()} if isinstance(v, dict)
+                       else v.double()) for k, v in variants[0].items()}
+            solo64 = make_adam_multi_step(make("xla", m).training_loss, adam(GANG_LR), data64,
+                                          mask)
+            ref_p, _, ref_losses = solo64(p64, adam(GANG_LR).init(p64), first_idx[0],
+                                          gens()[0])
+            solo32 = make_adam_multi_step(make("xla", m).training_loss, adam(GANG_LR), (x, y),
+                                          mask)
+            xla_p, _, xla_losses = solo32(variants[0], adam(GANG_LR).init(variants[0]),
+                                          first_idx[0], gens()[0])
+            ph.wait()
+            xla_gap = _trajectory_gap(xla_losses, xla_p, ref_losses, ref_p)
+            emit({"phase": f"gang_reference_{cell}", "m": m, "batch": batch,
+                  "fp32_xla_gap_from_fp64": xla_gap, "wall_s": ph.elapsed()})
+        for route in ("xla", "xla_high"):
+            with Phase(f"gang_train_{cell}_{route}", 120) as ph:
+                model = make(route, m)
+                # solo: member 0's first call, timed (the gang's yardstick)
+                solo = make_adam_multi_step(model.training_loss, adam(GANG_LR), (x, y), mask)
+                ph.wait()
+                t0 = time.monotonic()
+                sp, _, slosses = solo(variants[0], adam(GANG_LR).init(variants[0]),
+                                      first_idx[0], gens()[0])
+                ph.wait()
+                solo_wall = time.monotonic() - t0
+                # the gang: its first call, timed
+                optimizer, gstate = init_gang_adam(variants, [GANG_LR] * g_size)
+                gang = make_adam_gang_multi_step(model.training_loss, optimizer, (x, y), mask)
+                torch.cuda.reset_peak_memory_stats()
+                reset()
+                t0 = time.monotonic()
+                gp, gstate, glosses = gang(stack_pytrees(variants), gstate,
+                                           torch.stack(first_idx, dim=1), gens())
+                ph.wait()
+                gang_wall = time.monotonic() - t0
+                counts_now = launches()
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                member0 = unstack_pytree(gp, g_size)[0]
+                gap = _trajectory_gap(glosses[:, 0], member0, slosses, sp)
+                finite = bool(torch.isfinite(glosses).all() and torch.isfinite(slosses).all()
+                              and all(bool(torch.isfinite(v).all())
+                                      for v in _flat_tensors(gp).values()))
+                require(finite, f"gang {cell} {route}: a loss or parameter is not finite")
+                require(gap <= 2.0 * xla_gap,
+                        f"gang {cell} {route}: member 0's first call {gap} from its solo call, "
+                        f"above 2x the fp32 xla gap {xla_gap}")
+                if route == "xla_high":
+                    require(counts_now["pallas_matvec"] > 0 and counts_now["pallas_cg_solve"] == 0,
+                            f"gang {cell} xla_high: launches {counts_now}")
+                    gang_launches["pallas_matvec"] += counts_now["pallas_matvec"]
+                else:
+                    require(sum(counts_now.values()) == 0,
+                            f"gang {cell} xla: launches {counts_now}")
+                solo_sps = k_steps / solo_wall
+                gang_sps = g_size * k_steps / gang_wall
+                emit({"phase": f"gang_train_{cell}_{route}", "m": m, "batch": batch,
+                      "gang": g_size, "k": k_steps,
+                      "route": "xla_high: batched B1 (3xTF32, gang on the grid)"
+                      if route == "xla_high" else "batched torch.matmul (IEEE fp32)",
+                      "solve": "pivoted Cholesky rank 128 (batched), relative 1e-6, cap M",
+                      "solo_steps_per_s": solo_sps, "gang_aggregate_steps_per_s": gang_sps,
+                      "gang_over_solo": gang_sps / solo_sps,
+                      "member0_first_call_gap_from_solo": gap,
+                      "tolerance": "<= 2x the fp32 xla solo call's gap from fp64",
+                      "launches_timed_call": counts_now, "peak_memory_gb": peak_gb,
+                      "final_losses": glosses[-1].tolist(), "nvidia_smi": card_line,
+                      "wall_s": ph.elapsed()})
+                kernels["pallas_matvec"][f"gang_{cell}_{route}_steps_per_s"] = gang_sps
+                del gp, gstate, sp
+        del base, variants
+
+    # -- gang_b2: B2 member by member ------------------------------------------
+    with Phase("gang_b2", 120) as ph:
+        sel = tuple(torch.as_tensor(t, dtype=torch.float32, device=device)
+                    for t in (iv, u, counts))
+        model = make("pallas_resident", plain=True)
+        base = model.init_params(sel[0], pseudo_u=sel[1], cluster_counts=sel[2],
+                                 dtype=torch.float32, device=device)
+        variants = variants_of(base)
+        mask = model.trainable_mask(base)
+        optimizer, gstate = init_gang_adam(variants, [GANG_LR] * g_size)
+        gang = make_adam_gang_multi_step(model.training_loss, optimizer, (x, y), mask)
+        idx = torch.stack([next(s) for s in streams(TRAIN_BATCH)], dim=1)[:GANG_B2_STEPS]
+        reset()
+        t0 = time.monotonic()
+        gp, _, glosses = gang(stack_pytrees(variants), gstate, idx, gens())
+        ph.wait()
+        wall = time.monotonic() - t0
+        counts_now = launches()
+        want = 2 * g_size * GANG_B2_STEPS
+        require(counts_now == {"pallas_matvec": 0, "pallas_cg_solve": want, "gram_matvec": 0,
+                               "kuu_matvec": 0},
+                f"gang through B2: launches {counts_now}, want {want} B2 launches")
+        require(bool(torch.isfinite(glosses).all()), "gang through B2: a loss is not finite")
+        gang_launches["pallas_cg_solve"] += counts_now["pallas_cg_solve"]
+        emit({"phase": "gang_b2", "m": int(base["inducing_points"].shape[0]),
+              "batch": TRAIN_BATCH, "gang": g_size, "steps": GANG_B2_STEPS,
+              "launches": counts_now, "want_b2_launches": want,
+              "gang_aggregate_steps_per_s": g_size * GANG_B2_STEPS / wall,
+              "s_per_gang_step": wall / GANG_B2_STEPS, "nvidia_smi": card_line,
+              "wall_s": ph.elapsed()})
+        kernels["pallas_cg_solve"]["gang_launches"] = counts_now["pallas_cg_solve"]
+        del gp, variants, base
+    kernels["pallas_matvec"]["gang_launches"] = gang_launches["pallas_matvec"]
+
+
+def parallel_phases(ctx) -> None:
+    """The parallel package (``cggp_tpu_torch/parallel``) at world size 1:
+    ``make_mesh(1)`` starts a one-rank NCCL group on the card.
+
+    * ``sharded_cg_config5``: ``tests/test_parallel.py``'s M = 8192 system
+      (a jittered 0.2 grid in 3-D, Matern32 at lengthscale 0.5, lambda ~
+      U(0.1, 0.5), 2 right-hand sides, relative 1e-10, cap 300) through
+      ``make_sharded_cg`` and the dense ``"xla"`` loop: both converged, the
+      sharded solution's error from a float64 solve at most 2x the dense
+      route's, the steps within max(3, 5 %); ms a CG step of each (the dense
+      loop is the same loop without the all-reduce), and a matvec with and
+      without its one-rank all-reduce.
+    * ``train_sharded_cggp``: ``ShardedCGGP`` on the committed M = 9576
+      selection (capacity 10240, ``ImplicitCGGP``'s padding), pivoted
+      Cholesky rank 128, relative 1e-5, batches of 2048 (R = 2059): the
+      first step's loss and gradients against a float64 sharded run at
+      relative 1e-12 and against ``ImplicitCGGP``'s blocked ``"xla"`` route
+      (each of the sharded route's gaps at most 2x that route's gap for the
+      same quantity, ``within_twice_route``), then 3 timed steps; no kernel launch
+      (the row block is materialised, as in JAX).
+    * ``train_dp_hybrid``: ``train_using_adam_and_update(mesh=...)`` against
+      the replicated path, 4 steps of the dense M = 989 production model
+      (B1 under the exact factor): bitwise equal at one rank.
+    * ``serve_mesh``: ``predict_in_batches(mesh=...)`` of 4 x 8192 points
+      through B1's CG cache against the single-device serving: bitwise.
+    * ``sharded_itergpr``: ``ShardedIterGPR`` on the first 32,768 rows of
+      the exact-GP data (8 fixed probes, pivoted Cholesky rank 256, relative
+      1e-4, SLQ 20): one MLL value and its gradients against ``IterGPR``'s
+      blocked route and a float64 sharded run at relative 1e-12 (the
+      sharded gaps as ``within_twice_route`` holds them)."""
+    from cggp_tpu_torch.data import synthetic
+    from cggp_tpu_torch.models.cggp import CGGP
+    from cggp_tpu_torch.models.implicit import ImplicitCGGP
+    from cggp_tpu_torch.models.itergpr import IterGPR
+    from cggp_tpu_torch.ops.cg import ConjugateGradient, conjugate_gradient
+    from cggp_tpu_torch.ops.kernels import Matern32
+    from cggp_tpu_torch.ops.linalg import add_diagonal
+    from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve
+    from cggp_tpu_torch.ops.pallas_gram import gram_matvec, kuu_matvec
+    from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec
+    from cggp_tpu_torch.parallel import ShardedCGGP, ShardedIterGPR, make_mesh, make_sharded_cg
+    from cggp_tpu_torch.parallel.sharded_cg import _local_matvec, _local_rows
+    from cggp_tpu_torch.training.optimize import (adam, make_adam_step, predict_in_batches,
+                                                  train_using_adam_and_update)
+
+    device, card_line, kernels = ctx["device"], ctx["card_line"], ctx["kernels"]
+    x_np, y_np = ctx["data"]
+    counted = (pallas_matvec, pallas_cg_solve, gram_matvec, kuu_matvec)
+
+    def launches():
+        return {f.__name__: f.launches for f in counted}
+
+    def reset():
+        for f in counted:
+            f.launches = 0
+
+    def to64(params):
+        return {k: ({kk: vv.double() for kk, vv in v.items()} if isinstance(v, dict)
+                    else v.double()) for k, v in params.items()}
+
+    with Phase("parallel_mesh", 60) as ph:
+        mesh = make_mesh(1, device=device)
+        import torch.distributed as dist
+
+        emit({"phase": "parallel_mesh", "world_size": mesh.size, "rank": mesh.rank,
+              "device": str(mesh.device), "backend": dist.get_backend(),
+              "wall_s": ph.elapsed()})
+
+    # -- sharded_cg_config5 --------------------------------------------------
+    with Phase("sharded_cg_config5", 120) as ph:
+        m, d = CONFIG5_M, 3
+        rng = np.random.default_rng(CONFIG5_SEED)
+        axes = [np.arange(21) * 0.2 - 2.0] + [np.arange(20) * 0.2 - 2.0] * (d - 1)
+        grid = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, d)[:m]
+        require(grid.shape[0] == m, f"config-5 grid has {grid.shape[0]} points")
+        z = torch.as_tensor(grid + rng.uniform(-0.05, 0.05, grid.shape), dtype=torch.float32,
+                            device=device)
+        lam = torch.as_tensor(rng.uniform(0.1, 0.5, (m,)), dtype=torch.float32, device=device)
+        rhs = torch.as_tensor(rng.standard_normal((2, m)), dtype=torch.float32, device=device)
+        kernel = Matern32()
+        kp = kernel.init_params(variance=1.0, lengthscales=np.full(d, 0.5),
+                                dtype=torch.float32, device=device)
+        solve = make_sharded_cg(kernel, mesh, 1e-10, 300, relative_threshold=True)
+        solve(kp, z, lam, rhs)  # warm-up
+        ph.wait()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        sol, stats = solve(kp, z, lam, rhs)
+        end.record()
+        ph.wait()
+        sharded_ms = start.elapsed_time(end)
+        a = add_diagonal(kernel.K(kp, z), lam)
+        start.record()
+        dense, dstats = conjugate_gradient(a, rhs, torch.zeros_like(rhs), 1e-10,
+                                           max_iterations=300, max_steps_cycle=301,
+                                           relative_threshold=True)
+        end.record()
+        ph.wait()
+        dense_ms = start.elapsed_time(end)
+        exact = torch.linalg.solve(a.double(), rhs.double().T).T
+        ph.wait()
+        err = float((sol.double() - exact).abs().max())
+        dense_err = float((dense.double() - exact).abs().max())
+        gap = float((sol - dense).abs().max())
+        steps, dsteps = int(stats.steps), int(dstats.steps)
+        require(bool(stats.converged) and bool(dstats.converged), "config 5: a solve stopped "
+                "at the cap")
+        require(err <= 2.0 * dense_err, f"config 5: sharded {err} from fp64, dense {dense_err}")
+        require(abs(steps - dsteps) <= max(3, 0.05 * dsteps),
+                f"config 5: sharded steps {steps}, dense {dsteps}")
+        a_rows, offset, mb = _local_rows(kernel, kp, z, lam, mesh)
+        with_reduce = _local_matvec(a_rows, offset, mb, mesh)
+        times = timed_in_turns(ph, {"with_all_reduce": lambda: with_reduce(rhs),
+                                    "local_product": lambda: rhs @ a_rows},
+                               ("local_product", "with_all_reduce", "with_all_reduce",
+                                "local_product"), reps=50)
+        emit({"phase": "sharded_cg_config5", "m": m, "world_size": mesh.size, "rhs": 2,
+              "steps": steps, "dense_steps": dsteps, "max_abs_err_fp64": err,
+              "dense_max_abs_err_fp64": dense_err, "max_abs_gap_vs_dense": gap,
+              "tolerance": "error from fp64 <= 2x the dense route's; steps within max(3, 5 %)",
+              "ms_per_cg_step": sharded_ms / max(steps, 1),
+              "dense_ms_per_cg_step": dense_ms / max(dsteps, 1),
+              "matvec_ms": times, "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        del a, a_rows, exact, dense, sol
+
+    # -- train_sharded_cggp: the matrix-free workload's width, sharded ------------
+    with Phase("train_sharded_cggp", 240) as ph:
+        with np.load(ctx["implicit_selection_path"]) as sel:
+            siv, su, scounts = sel["iv"], sel["u"], sel["counts"]
+        n = x_np.shape[0]
+        x = torch.as_tensor(x_np, dtype=torch.float32, device=device)
+        y = torch.as_tensor(y_np, dtype=torch.float32, device=device)
+        common = dict(kernel=Matern32(), num_data=n, num_probes=TRAIN_PROBES,
+                      precondition="pivchol", precond_rank=128, relative_threshold=True)
+
+        def sharded(threshold=IMPLICIT_THRESHOLD, max_cg=IMPLICIT_MAX_CG):
+            return ShardedCGGP(mesh=mesh, error_threshold=threshold, max_cg_iterations=max_cg,
+                               **common)
+
+        blocked = ImplicitCGGP(block=IMPLICIT_BLOCK, error_threshold=IMPLICIT_THRESHOLD,
+                               max_cg_iterations=IMPLICIT_MAX_CG, use_pallas=False, **common)
+        bparams = blocked.init_params(siv, pseudo_u=su, cluster_counts=scounts,
+                                      dtype=torch.float32, device=device)
+        capacity = int(bparams["inducing_points"].shape[0])
+        sparams = sharded().init_params(siv, pseudo_u=su, cluster_counts=scounts,
+                                        capacity=capacity, dtype=torch.float32, device=device)
+        for name in ("inducing_points", "pseudo_u", "cluster_counts", "inducing_mask"):
+            require(torch.equal(sparams[name], bparams[name]), f"sharded padding differs: {name}")
+        cpu_gen = torch.Generator().manual_seed(SHARDED_TRAIN_SEED)
+        index = torch.stack([torch.randperm(n, generator=cpu_gen)[:TRAIN_BATCH]
+                             for _ in range(1 + SHARDED_TRAIN_STEPS)]).to(device)
+        batches = [(x[i], y[i]) for i in index]
+        batch64 = tuple(t.double() for t in batches[0])
+
+        def probe_gen():
+            return torch.Generator(device=device).manual_seed(SHARDED_TRAIN_SEED)
+
+        loss64, grads64 = loss_and_grads(sharded(IMPLICIT_REF_THRESHOLD, IMPLICIT_REF_MAX_CG),
+                                         to64(sparams), batch64, probe_gen())
+        reset()
+        loss_s, grads_s = loss_and_grads(sharded(), sparams, batches[0], probe_gen())
+        ph.wait()
+        step0_launches = launches()
+        loss_b, grads_b = loss_and_grads(blocked, bparams, batches[0], probe_gen())
+        ph.wait()
+        gaps = relative_gaps(loss_s, grads_s, loss64, grads64)
+        blocked_gaps = relative_gaps(loss_b, grads_b, loss64, grads64)
+        require(within_twice_route(gaps, blocked_gaps),
+                f"train_sharded_cggp: gaps {gaps} beyond the blocked route's {blocked_gaps}")
+        require(sum(step0_launches.values()) == 0,
+                f"train_sharded_cggp: kernel launches {step0_launches}")
+        model = sharded()
+        step = make_adam_step(model.training_loss, adam(TRAIN_LR), model.trainable_mask(sparams))
+        state, p, gen = adam(TRAIN_LR).init(sparams), sparams, probe_gen()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        losses = []
+        for batch in batches[1:]:
+            p, state, loss = step(p, state, batch, gen)
+            losses.append(loss)
+        ph.wait()
+        wall = time.monotonic() - t0
+        require(all(bool(torch.isfinite(v)) for v in losses), "train_sharded_cggp: a loss is "
+                "not finite")
+        emit({"phase": "train_sharded_cggp", "m": IMPLICIT_M, "m_pad": capacity,
+              "rows": 1 + 2 * TRAIN_PROBES + TRAIN_BATCH, "world_size": mesh.size,
+              "row_block_mb": capacity * capacity * 4 / 1e6,
+              "loss_fp64": float(loss64), "gaps_from_fp64": gaps,
+              "blocked_xla_gaps_from_fp64": blocked_gaps,
+              "tolerance": "each gap <= 2x the blocked xla route's for that quantity",
+              "s_per_step": wall / SHARDED_TRAIN_STEPS, "steps": SHARDED_TRAIN_STEPS,
+              "losses": [float(v) for v in losses], "launches_step0": step0_launches,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        del p, state, sparams, bparams, batches, batch64
+
+    # -- train_dp_hybrid: the trainer's mesh step against the replicated one -----
+    with Phase("train_dp_hybrid", 120) as ph:
+        n = x_np.shape[0]
+        x = torch.as_tensor(x_np, dtype=torch.float32, device=device)
+        y = torch.as_tensor(y_np, dtype=torch.float32, device=device)
+        model = CGGP(kernel=Matern32(), num_data=n, num_probes=TRAIN_PROBES, precondition="chol",
+                     conjugate_gradient=ConjugateGradient(TRAIN_CHOL_THRESHOLD,
+                                                          relative_threshold=True,
+                                                          matvec_impl="pallas"))
+        params = ctx["params"]
+        out, walls = {}, {}
+        for name, mesh_arg in (("replicated", None), ("mesh", mesh)):
+            reset()
+            t0 = time.monotonic()
+            out[name] = train_using_adam_and_update(
+                dict(params), model.training_loss, (x, y), HYBRID_STEPS, TRAIN_BATCH, TRAIN_LR,
+                torch.Generator(device=device).manual_seed(HYBRID_SEED),
+                trainable_mask=model.trainable_mask(params), mesh=mesh_arg)
+            ph.wait()
+            walls[name] = {"s": time.monotonic() - t0, "launches": launches()}
+        flat = {k: _flat_tensors(v) for k, v in out.items()}
+        equal = all(torch.equal(flat["mesh"][k], v) for k, v in flat["replicated"].items())
+        require(equal, "train_dp_hybrid: the mesh trajectory differs from the replicated one")
+        require(walls["mesh"]["launches"]["pallas_matvec"] > 0, "train_dp_hybrid: no B1 launch")
+        emit({"phase": "train_dp_hybrid", "world_size": mesh.size, "steps": HYBRID_STEPS,
+              "batch": TRAIN_BATCH, "bitwise_equal": equal, "runs": walls,
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        kernels["pallas_matvec"]["hybrid_launches"] = walls["mesh"]["launches"]["pallas_matvec"]
+
+    # -- serve_mesh: data-parallel serving at one rank ---------------------------
+    with Phase("serve_mesh", 120) as ph:
+        xq, model, params = ctx["xq"], ctx["make_model"]("pallas"), ctx["params"]
+        post = model.posterior(params, solver="cg")
+        res, walls = {}, {}
+        for name, mesh_arg in (("single", None), ("mesh", mesh)):
+            reset()
+            t0 = time.monotonic()
+            res[name] = predict_in_batches(model, params, xq, batch_size=R_BATCH,
+                                           posterior_solver="cg", posterior=post, mesh=mesh_arg)
+            ph.wait()
+            walls[name] = {"points_per_s": xq.shape[0] / (time.monotonic() - t0),
+                           "launches": launches()}
+        equal = all(torch.equal(a, b) for a, b in zip(res["mesh"], res["single"]))
+        require(equal, "serve_mesh: mesh serving differs from single-device serving")
+        require(walls["mesh"]["launches"]["pallas_matvec"] > 0, "serve_mesh: no B1 launch")
+        emit({"phase": "serve_mesh", "world_size": mesh.size, "points": int(xq.shape[0]),
+              "batch_size": R_BATCH, "bitwise_equal": equal, "runs": walls,
+              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+        kernels["pallas_matvec"]["serve_mesh_launches"] = walls["mesh"]["launches"][
+            "pallas_matvec"]
+
+    # -- sharded_itergpr: the exact GP's row block at N = 32,768 -------------------
+    with Phase("sharded_itergpr", 240) as ph:
+        nn = SHARDED_ITERGPR_N
+        (xe_np, ye_np), _ = synthetic(n=ITERGPR_RAW_N, dim=3, seed=0)
+        xe = torch.as_tensor(xe_np[:nn], dtype=torch.float32, device=device)
+        ye = torch.as_tensor(ye_np[:nn], dtype=torch.float32, device=device)
+        rng = np.random.default_rng(ITERGPR_PROBE_SEED)
+        probes = torch.as_tensor((2 * rng.integers(0, 2, size=(ITERGPR_PROBES, nn)) - 1)
+                                 .astype(np.float32), device=device)
+        common = dict(kernel=Matern32(), relative_threshold=True, num_probes=ITERGPR_PROBES,
+                      slq_lanczos_iters=ITERGPR_SLQ, precondition="pivchol",
+                      precond_rank=ITERGPR_RANK)
+
+        def exact(model, params, data, probe_rows):
+            live = {s: {k: v.detach().clone().requires_grad_() for k, v in d.items()}
+                    for s, d in params.items()}
+            loss = model.training_loss(live, data, probes=probe_rows)
+            grads = torch.autograd.grad(loss, [live["kernel"]["variance"],
+                                               live["kernel"]["lengthscales"],
+                                               live["likelihood"]["variance"]])
+            return loss.detach(), dict(zip(TRAINABLE, (g.detach() for g in grads)))
+
+        blocked = IterGPR(error_threshold=ITERGPR_THRESHOLD, max_cg_iterations=1000,
+                          block=ITERGPR_BLOCK, use_pallas=False, **common)
+        params = blocked.init_params(3, dtype=torch.float32, device=device)
+        sharded = ShardedIterGPR(mesh=mesh, error_threshold=ITERGPR_THRESHOLD,
+                                 max_cg_iterations=1000, **common)
+        ref_model = ShardedIterGPR(mesh=mesh, error_threshold=ITERGPR_REF_THRESHOLD,
+                                   max_cg_iterations=ITERGPR_REF_MAX_CG, **common)
+        loss64, grads64 = exact(ref_model, to64(params), (xe.double(), ye.double()),
+                                probes.double())
+        ph.wait()
+        reset()
+        t0 = time.monotonic()
+        loss_s, grads_s = exact(sharded, params, (xe, ye), probes)
+        ph.wait()
+        sharded_s = time.monotonic() - t0
+        s_launches = launches()
+        t0 = time.monotonic()
+        loss_b, grads_b = exact(blocked, params, (xe, ye), probes)
+        ph.wait()
+        blocked_s = time.monotonic() - t0
+        gaps = relative_gaps(loss_s, grads_s, loss64, grads64)
+        blocked_gaps = relative_gaps(loss_b, grads_b, loss64, grads64)
+        require(within_twice_route(gaps, blocked_gaps),
+                f"sharded_itergpr: gaps {gaps} beyond the blocked route's {blocked_gaps}")
+        require(sum(s_launches.values()) == 0, f"sharded_itergpr: kernel launches {s_launches}")
+        emit({"phase": "sharded_itergpr", "n": nn, "world_size": mesh.size,
+              "reduced": "N 131,072 -> 32,768: the [N/d, N] row block is 68.7 GB at 131,072 "
+                         "and d = 1",
+              "row_block_gb": nn * nn * 4 / 1e9, "mll_fp64": -float(loss64),
+              "gaps_from_fp64": gaps, "blocked_gaps_from_fp64": blocked_gaps,
+              "tolerance": "each gap <= 2x the blocked route's for that quantity",
+              "sharded_s": sharded_s,
+              "blocked_s": blocked_s, "launches": s_launches, "nvidia_smi": card_line,
+              "wall_s": ph.elapsed()})
+
+
+# The phase groups, in the order a run takes them.  ``env``, ``build``,
+# ``setup`` and ``setup_train`` always run; ``--groups a,b`` runs those
+# groups only.
+GROUPS = ("serving", "baseline", "e2e", "implicit_training", "itergpr", "solver_family", "cli",
+          "covernet_streaming", "gang", "parallel")
+
+
+def parse_groups(argv) -> set:
+    """The groups to run: every group without ``--groups``; an unknown name
+    is an error (exit 2)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="chip_smoke.py", description="Smoke run of the PyTorch / H100 port on one card.")
+    parser.add_argument("--groups", default=None,
+                        help="comma-separated phase groups to run (default: all): "
+                             + ", ".join(GROUPS))
+    args = parser.parse_args(argv)
+    if args.groups is None:
+        return set(GROUPS)
+    names = [name.strip() for name in args.groups.split(",") if name.strip()]
+    unknown = sorted(set(names) - set(GROUPS))
+    if unknown or not names:
+        parser.error(f"unknown group(s) {unknown or args.groups!r}; choose from {GROUPS}")
+    return set(names)
+
+
+def main(argv=None) -> int:
+    groups = parse_groups(argv)
+
+    def run(group: str) -> bool:
+        return group in groups
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -4517,276 +5203,288 @@ def main() -> int:
         emit({"phase": "setup", "n_train": int(n_train), "m": int(m),
               "query_points": int(xq.shape[0]), "wall_s": ph.elapsed()})
 
-    kernels = {}
+    # Each kernel's record, filled by the groups that run.
+    kernels = collections.defaultdict(dict)
+    # The M = 989 selection (setup_implicit rebinds iv, u, counts).
+    selection_989 = (iv, u, counts)
 
-    # -- B1: pallas_matvec ---------------------------------------------------
-    with Phase("B1", 150) as ph:
-        gen = torch.Generator(device=device).manual_seed(0)
-        g = torch.randn(m, m, generator=gen, device=device)
-        a = (g @ g.T) / m + torch.eye(m, device=device)  # symmetric positive definite
-        cases = []
-        for rows in (1, R_BATCH):
-            p = torch.randn(rows, m, generator=gen, device=device)
-            got = pallas_matvec(p, a)
-            want = pallas_matvec_plain(p, a)
-            ph.wait()
-            exact = p.double() @ a.double()
-            err = float((got - want).abs().max())
-            err_fp64 = float((got.double() - exact).abs().max())
-            plain_err_fp64 = float((want.double() - exact).abs().max())
+    if run("serving"):
+        # -- B1: pallas_matvec ---------------------------------------------------
+        with Phase("B1", 150) as ph:
+            gen = torch.Generator(device=device).manual_seed(0)
+            g = torch.randn(m, m, generator=gen, device=device)
+            a = (g @ g.T) / m + torch.eye(m, device=device)  # symmetric positive definite
+            cases = []
+            for rows in (1, R_BATCH):
+                p = torch.randn(rows, m, generator=gen, device=device)
+                got = pallas_matvec(p, a)
+                want = pallas_matvec_plain(p, a)
+                ph.wait()
+                exact = p.double() @ a.double()
+                err = float((got - want).abs().max())
+                err_fp64 = float((got.double() - exact).abs().max())
+                plain_err_fp64 = float((want.double() - exact).abs().max())
+                del exact
+                # Both are fp32-accurate sums of M products in other orders: the
+                # gap is a few ulps of sum |p||a| (worst case M * eps = 6e-5 of it).
+                scale = float((p.abs() @ a.abs()).max())
+                require(math.isfinite(err) and err <= 1e-5 * scale,
+                        f"B1 R={rows}: max abs err {err} > 1e-5 * {scale}")
+                # The kernel (3xTF32 above R = 8) is no further from fp64 than
+                # twice the IEEE fp32 plain version.
+                require(err_fp64 <= 2.0 * plain_err_fp64,
+                        f"B1 R={rows}: {err_fp64} from fp64, plain fp32 {plain_err_fp64}")
+                # p at one, two and three words into a buffer (rows at every
+                # skew from 16-byte alignment): the same arithmetic, so the
+                # output must be bitwise equal.
+                for offset in (1, 2, 3):
+                    p_off = torch.empty(rows * m + offset, device=device)[offset:].view(rows, m)
+                    p_off.copy_(p)
+                    require(torch.equal(pallas_matvec(p_off, a), got),
+                            f"B1 R={rows}: p at a {offset}-word offset changes the output")
+                    del p_off
+                emulation, profiled = {}, None
+                if rows > 8:
+                    k = 256
+                    emulated = matmul_3xtf32_emulated(p[:k], a, outer_every=OUTER_STAGES)
+                    emulation = {"max_abs_err_vs_3xtf32_emulation_first_256_rows":
+                                 float((got[:k] - emulated).abs().max())}
+                    profiled = kernel_device_ms(ph, lambda: pallas_matvec(p, a))
+                times = timed_in_turns(ph, {"plain": lambda: pallas_matvec_plain(p, a),
+                                            "kernel": lambda: pallas_matvec(p, a),
+                                            "library": lambda: torch.matmul(p, a)},
+                                       ["plain", "kernel", "library", "kernel", "library", "plain"],
+                                       reps=20)
+                graph = {}
+                if rows == 1:  # launch-bound: host overhead hides the device time
+                    graph = {name: graph_ms(ph, fn) for name, fn in (
+                        ("kernel", lambda: pallas_matvec(p, a)),
+                        ("library", lambda: torch.matmul(p, a)))}
+                bound, bound_by, bound_what, parts = bound_parts(
+                    4.0 * (2 * rows * m + m * m), 2.0 * rows * m * m, 2.0 * rows * m * m)
+                case = {"rows": rows, "m": m, "max_abs_err": err, "max_rel_err": err / scale,
+                        "max_abs_err_vs_fp64": err_fp64,
+                        "plain_max_abs_err_vs_fp64": plain_err_fp64,
+                        **emulation,
+                        "tolerance": f"max_abs_err <= 1e-5 * max(|p| @ |A|) = {1e-5 * scale:.3g}; "
+                                     "vs fp64 <= 2x the plain version's",
+                        "kernel_ms": float(np.mean(times["kernel"])),
+                        "plain_ms": float(np.mean(times["plain"])),
+                        "library_ms": float(np.mean(times["library"])), "turns_ms": times,
+                        "graph_ms": graph or None, "profiled_kernel_ms": profiled,
+                        "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
+                        "bound_parts_ms": parts,
+                        "simt_bound_ms": max(parts["fp32 FMA"], parts["bytes"]),
+                        "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, HBM 3.35 TB/s "
+                                "(H100 SXM data sheet)"}
+                cases.append(case)
+            # On data of one sign (the serving system: Kmn rows times Kmm +
+            # Lambda) a rounding that leans one way does not average out: the
+            # mean signed error relative to fp64, kernel against torch.matmul
+            # and against the emulation with its parts truncated (as the tensor
+            # cores do) and rounded to nearest.
+            exact = kmn_rows.double() @ kmm_lambda.double()
+            one_sign = {name: float(((fn(kmn_rows, kmm_lambda).double() - exact) / exact).mean())
+                        for name, fn in (
+                            ("kernel", pallas_matvec), ("library", torch.matmul),
+                            ("3xtf32_emulated_truncated",
+                             lambda p, a: matmul_3xtf32_emulated(p, a, truncate=True,
+                                                                 outer_every=OUTER_STAGES)),
+                            ("3xtf32_emulated",
+                             lambda p, a: matmul_3xtf32_emulated(p, a, outer_every=OUTER_STAGES)))}
             del exact
-            # Both are fp32-accurate sums of M products in other orders: the
-            # gap is a few ulps of sum |p||a| (worst case M * eps = 6e-5 of it).
-            scale = float((p.abs() @ a.abs()).max())
-            require(math.isfinite(err) and err <= 1e-5 * scale,
-                    f"B1 R={rows}: max abs err {err} > 1e-5 * {scale}")
-            # The kernel (3xTF32 above R = 8) is no further from fp64 than
-            # twice the IEEE fp32 plain version.
-            require(err_fp64 <= 2.0 * plain_err_fp64,
-                    f"B1 R={rows}: {err_fp64} from fp64, plain fp32 {plain_err_fp64}")
-            # p at one, two and three words into a buffer (rows at every
-            # skew from 16-byte alignment): the same arithmetic, so the
-            # output must be bitwise equal.
-            for offset in (1, 2, 3):
-                p_off = torch.empty(rows * m + offset, device=device)[offset:].view(rows, m)
-                p_off.copy_(p)
-                require(torch.equal(pallas_matvec(p_off, a), got),
-                        f"B1 R={rows}: p at a {offset}-word offset changes the output")
-                del p_off
-            emulation, profiled = {}, None
-            if rows > 8:
-                k = 256
-                emulated = matmul_3xtf32_emulated(p[:k], a, outer_every=OUTER_STAGES)
-                emulation = {"max_abs_err_vs_3xtf32_emulation_first_256_rows":
-                             float((got[:k] - emulated).abs().max())}
-                profiled = kernel_device_ms(ph, lambda: pallas_matvec(p, a))
-            times = timed_in_turns(ph, {"plain": lambda: pallas_matvec_plain(p, a),
-                                        "kernel": lambda: pallas_matvec(p, a),
-                                        "library": lambda: torch.matmul(p, a)},
-                                   ["plain", "kernel", "library", "kernel", "library", "plain"],
-                                   reps=20)
-            graph = {}
-            if rows == 1:  # launch-bound: host overhead hides the device time
-                graph = {name: graph_ms(ph, fn) for name, fn in (
-                    ("kernel", lambda: pallas_matvec(p, a)),
-                    ("library", lambda: torch.matmul(p, a)))}
-            bound, bound_by, bound_what, parts = bound_parts(
-                4.0 * (2 * rows * m + m * m), 2.0 * rows * m * m, 2.0 * rows * m * m)
-            case = {"rows": rows, "m": m, "max_abs_err": err, "max_rel_err": err / scale,
-                    "max_abs_err_vs_fp64": err_fp64, "plain_max_abs_err_vs_fp64": plain_err_fp64,
-                    **emulation,
-                    "tolerance": f"max_abs_err <= 1e-5 * max(|p| @ |A|) = {1e-5 * scale:.3g}; "
-                                 "vs fp64 <= 2x the plain version's",
-                    "kernel_ms": float(np.mean(times["kernel"])),
-                    "plain_ms": float(np.mean(times["plain"])),
-                    "library_ms": float(np.mean(times["library"])), "turns_ms": times,
-                    "graph_ms": graph or None, "profiled_kernel_ms": profiled,
-                    "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
-                    "bound_parts_ms": parts,
-                    "simt_bound_ms": max(parts["fp32 FMA"], parts["bytes"]),
-                    "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, HBM 3.35 TB/s "
-                            "(H100 SXM data sheet)"}
-            cases.append(case)
-        # On data of one sign (the serving system: Kmn rows times Kmm +
-        # Lambda) a rounding that leans one way does not average out: the
-        # mean signed error relative to fp64, kernel against torch.matmul
-        # and against the emulation with its parts truncated (as the tensor
-        # cores do) and rounded to nearest.
-        exact = kmn_rows.double() @ kmm_lambda.double()
-        one_sign = {name: float(((fn(kmn_rows, kmm_lambda).double() - exact) / exact).mean())
-                    for name, fn in (
-                        ("kernel", pallas_matvec), ("library", torch.matmul),
-                        ("3xtf32_emulated_truncated",
-                         lambda p, a: matmul_3xtf32_emulated(p, a, truncate=True,
-                                                             outer_every=OUTER_STAGES)),
-                        ("3xtf32_emulated",
-                         lambda p, a: matmul_3xtf32_emulated(p, a, outer_every=OUTER_STAGES)))}
-        del exact
-        emit({"phase": "B1", "cases": cases,
-              "mean_signed_rel_err_on_kernel_values": one_sign,
-              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
-        big = cases[-1]
-        kernels["pallas_matvec"] = {
-            "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
-            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-            "bound_by": big["bound_by"], "library_ms": big["library_ms"]}
+            emit({"phase": "B1", "cases": cases,
+                  "mean_signed_rel_err_on_kernel_values": one_sign,
+                  "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+            big = cases[-1]
+            kernels["pallas_matvec"] = {
+                "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
+                "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+                "bound_by": big["bound_by"], "library_ms": big["library_ms"]}
 
-    # -- B2: pallas_cg_solve ---------------------------------------------------
-    with Phase("B2", 300) as ph:
-        max_it = m
-        a64 = kmm_lambda.double()
-        b2_ptxas = [k for k in ptxas if "pallas_cg_cu" in k["kernel"]]
-        cases = []
-        for name, rhs in (("pseudo_u", u_row), ("kmn_batch", kmn_rows)):
-            rows = rhs.shape[0]
-            plan = pallas_cg_plan(rows, m, device)
-            got, steps = pallas_cg_solve(kmm_lambda, rhs, CG_THRESHOLD, max_it)
-            again, steps_again = pallas_cg_solve(kmm_lambda, rhs, CG_THRESHOLD, max_it)
-            want, steps_plain = pallas_cg_solve_plain(kmm_lambda, rhs, CG_THRESHOLD, max_it)
-            emulated, steps_emulated = pallas_cg_solve_3xtf32_emulated(kmm_lambda, rhs,
-                                                                       CG_THRESHOLD, max_it)
-            ph.wait()
-            steps, steps_plain, steps_emulated = int(steps), int(steps_plain), int(steps_emulated)
-            bitwise = bool(torch.equal(got, again)) and int(steps_again) == steps
-            exact = torch.linalg.solve(a64, rhs.double().T).T
-            scale = float(exact.abs().max())
-            err = float((got - want).abs().max())
-            err_emulated = float((got - emulated).abs().max())
-            err_exact = float((got.double() - exact).abs().max())
-            err_exact_plain = float((want.double() - exact).abs().max())
-            del exact, again, emulated
-            # fp32 CG runs whose sums differ in order drift apart before they
-            # converge; at this threshold JAX's fp32 CG on the CPU sat within
-            # 2e-4 (relative to max |v|) of the exact solve, so both are held
-            # to 10x that, and the step counts to a few percent of the plain
-            # loop's and of the JAX package's own (JAX_CG_STEPS).
-            tol = 2e-3 * scale
-            jax_steps = JAX_CG_STEPS[name]
-            require(steps < max_it, f"B2 {name}: no convergence in {max_it} steps")
-            for label, ref in (("plain", steps_plain), ("JAX", jax_steps)):
-                require(abs(steps - ref) <= max(3, 0.05 * ref),
-                        f"B2 {name}: steps {steps} vs {label} {ref}")
-            require(err <= tol and err_exact <= tol,
-                    f"B2 {name}: err {err}, vs exact {err_exact}, tolerance {tol}")
-            # The kernel is no further from the fp64 solve than twice the
-            # IEEE fp32 plain loop, as B1 and B3 are held to fp64.
-            require(err_exact <= 2.0 * err_exact_plain,
-                    f"B2 {name}: {err_exact} from fp64, plain fp32 {err_exact_plain}")
-            require(bitwise, f"B2 {name}: two runs of the same solve differ")
-            times = timed_in_turns(
-                ph, {"plain": lambda: pallas_cg_solve_plain(kmm_lambda, rhs, CG_THRESHOLD, max_it),
-                     "kernel": lambda: pallas_cg_solve(kmm_lambda, rhs, CG_THRESHOLD, max_it)},
-                ["plain", "kernel", "kernel", "plain"], reps=3)
-            kernel_ms = float(np.mean(times["kernel"]))
-            plain_ms = float(np.mean(times["plain"]))
-            # Two grid.sync()s a step and one before the first.
-            syncs = 2 * steps + 1
-            sync_floor_ms = event_ms(ph, lambda: pallas_cg_sync_floor(plan, syncs, device),
-                                     reps=5)
-            profiled = kernel_device_ms(ph, lambda: pallas_cg_solve(kmm_lambda, rhs,
-                                                                    CG_THRESHOLD, max_it),
-                                        calls=3)
-            split_ms = sum(v for k, v in profiled.items() if "split_b_kernel" in k)
-            solve_ms = sum(v for k, v in profiled.items() if "cg_" in k and "kernel" in k)
-            (bound, bound_by, bound_what, parts), per_step_bytes = b2_bound(rows, m, steps, plan)
-            cases.append({"rhs": name, "rows": rows, "m": m, "plan": plan, "steps": steps,
-                          "steps_plain": steps_plain, "steps_jax_cpu": jax_steps,
-                          "steps_3xtf32_emulated": steps_emulated, "max_abs_err": err,
-                          "max_abs_err_vs_3xtf32_emulation": err_emulated,
-                          "max_abs_err_vs_fp64_solve": err_exact,
-                          "plain_max_abs_err_vs_fp64_solve": err_exact_plain,
-                          "bitwise_equal_repeat": bitwise,
-                          "tolerance": f"max_abs_err <= 2e-3 * max|v| = {tol:.3g}; vs fp64 <= "
-                                       "2x the plain version's; steps within max(3, 5 %) of "
-                                       "the plain loop's and JAX's",
-                          "kernel_ms": kernel_ms, "plain_ms": plain_ms, "turns_ms": times,
-                          "per_step_ms": kernel_ms / max(steps, 1),
-                          "sync_floor_ms": sync_floor_ms, "syncs": syncs,
-                          "profiled_kernel_ms": profiled,
-                          "split_share": split_ms / (split_ms + solve_ms) if solve_ms else None,
-                          "bytes_per_step": per_step_bytes,
-                          "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
-                          "bound_parts_ms": parts,
-                          "simt_bound_ms": max(parts["fp32 FMA"], parts["bytes"]),
-                          "per_step_bound_ms": bound / max(steps, 1),
-                          "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, HBM 3.35 TB/s "
-                                  "(H100 SXM data sheet)"})
-        # The design's targets: the tiled path beats the plain loop, the
-        # small-R path the earlier SIMT kernel.
-        require(cases[1]["kernel_ms"] < cases[1]["plain_ms"],
-                f"B2 R={R_BATCH}: {cases[1]['kernel_ms']} ms, plain {cases[1]['plain_ms']} ms")
-        require(cases[0]["kernel_ms"] < B2_R1_BEFORE_MS,
-                f"B2 R=1: {cases[0]['kernel_ms']} ms, the SIMT kernel {B2_R1_BEFORE_MS} ms")
-        emit({"phase": "B2", "cases": cases, "library_ms": None,
-              "library_note": "no single PyTorch call computes a CG solve",
-              "ptxas": b2_ptxas, "b1_kernel_ms_r8192": kernels["pallas_matvec"]["ms"],
-              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
-        big = cases[-1]
-        kernels["pallas_cg_solve"] = {
-            "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
-            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-            "bound_by": big["bound_by"], "library_ms": None}
+        # -- B2: pallas_cg_solve ---------------------------------------------------
+        with Phase("B2", 300) as ph:
+            max_it = m
+            a64 = kmm_lambda.double()
+            b2_ptxas = [k for k in ptxas if "pallas_cg_cu" in k["kernel"]]
+            cases = []
+            for name, rhs in (("pseudo_u", u_row), ("kmn_batch", kmn_rows)):
+                rows = rhs.shape[0]
+                plan = pallas_cg_plan(rows, m, device)
+                got, steps = pallas_cg_solve(kmm_lambda, rhs, CG_THRESHOLD, max_it)
+                again, steps_again = pallas_cg_solve(kmm_lambda, rhs, CG_THRESHOLD, max_it)
+                want, steps_plain = pallas_cg_solve_plain(kmm_lambda, rhs, CG_THRESHOLD, max_it)
+                emulated, steps_emulated = pallas_cg_solve_3xtf32_emulated(kmm_lambda, rhs,
+                                                                           CG_THRESHOLD, max_it)
+                ph.wait()
+                steps, steps_plain = int(steps), int(steps_plain)
+                steps_emulated = int(steps_emulated)
+                bitwise = bool(torch.equal(got, again)) and int(steps_again) == steps
+                exact = torch.linalg.solve(a64, rhs.double().T).T
+                scale = float(exact.abs().max())
+                err = float((got - want).abs().max())
+                err_emulated = float((got - emulated).abs().max())
+                err_exact = float((got.double() - exact).abs().max())
+                err_exact_plain = float((want.double() - exact).abs().max())
+                del exact, again, emulated
+                # fp32 CG runs whose sums differ in order drift apart before they
+                # converge; at this threshold JAX's fp32 CG on the CPU sat within
+                # 2e-4 (relative to max |v|) of the exact solve, so both are held
+                # to 10x that, and the step counts to a few percent of the plain
+                # loop's and of the JAX package's own (JAX_CG_STEPS).
+                tol = 2e-3 * scale
+                jax_steps = JAX_CG_STEPS[name]
+                require(steps < max_it, f"B2 {name}: no convergence in {max_it} steps")
+                for label, ref in (("plain", steps_plain), ("JAX", jax_steps)):
+                    require(abs(steps - ref) <= max(3, 0.05 * ref),
+                            f"B2 {name}: steps {steps} vs {label} {ref}")
+                require(err <= tol and err_exact <= tol,
+                        f"B2 {name}: err {err}, vs exact {err_exact}, tolerance {tol}")
+                # The kernel is no further from the fp64 solve than twice the
+                # IEEE fp32 plain loop, as B1 and B3 are held to fp64.
+                require(err_exact <= 2.0 * err_exact_plain,
+                        f"B2 {name}: {err_exact} from fp64, plain fp32 {err_exact_plain}")
+                require(bitwise, f"B2 {name}: two runs of the same solve differ")
+                times = timed_in_turns(
+                    ph, {"plain": lambda: pallas_cg_solve_plain(kmm_lambda, rhs, CG_THRESHOLD,
+                                                                max_it),
+                         "kernel": lambda: pallas_cg_solve(kmm_lambda, rhs, CG_THRESHOLD, max_it)},
+                    ["plain", "kernel", "kernel", "plain"], reps=3)
+                kernel_ms = float(np.mean(times["kernel"]))
+                plain_ms = float(np.mean(times["plain"]))
+                # Two grid.sync()s a step and one before the first.
+                syncs = 2 * steps + 1
+                sync_floor_ms = event_ms(ph, lambda: pallas_cg_sync_floor(plan, syncs, device),
+                                         reps=5)
+                profiled = kernel_device_ms(ph, lambda: pallas_cg_solve(kmm_lambda, rhs,
+                                                                        CG_THRESHOLD, max_it),
+                                            calls=3)
+                split_ms = sum(v for k, v in profiled.items() if "split_b_kernel" in k)
+                solve_ms = sum(v for k, v in profiled.items() if "cg_" in k and "kernel" in k)
+                (bound, bound_by, bound_what, parts), per_step_bytes = b2_bound(rows, m, steps,
+                                                                               plan)
+                cases.append({"rhs": name, "rows": rows, "m": m, "plan": plan, "steps": steps,
+                              "steps_plain": steps_plain, "steps_jax_cpu": jax_steps,
+                              "steps_3xtf32_emulated": steps_emulated, "max_abs_err": err,
+                              "max_abs_err_vs_3xtf32_emulation": err_emulated,
+                              "max_abs_err_vs_fp64_solve": err_exact,
+                              "plain_max_abs_err_vs_fp64_solve": err_exact_plain,
+                              "bitwise_equal_repeat": bitwise,
+                              "tolerance": f"max_abs_err <= 2e-3 * max|v| = {tol:.3g}; vs fp64 <= "
+                                           "2x the plain version's; steps within max(3, 5 %) of "
+                                           "the plain loop's and JAX's",
+                              "kernel_ms": kernel_ms, "plain_ms": plain_ms, "turns_ms": times,
+                              "per_step_ms": kernel_ms / max(steps, 1),
+                              "sync_floor_ms": sync_floor_ms, "syncs": syncs,
+                              "profiled_kernel_ms": profiled,
+                              "split_share": split_ms / (split_ms + solve_ms) if solve_ms else None,
+                              "bytes_per_step": per_step_bytes,
+                              "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
+                              "bound_parts_ms": parts,
+                              "simt_bound_ms": max(parts["fp32 FMA"], parts["bytes"]),
+                              "per_step_bound_ms": bound / max(steps, 1),
+                              "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, HBM 3.35 TB/s "
+                                      "(H100 SXM data sheet)"})
+            # The design's targets: the tiled path beats the plain loop, the
+            # small-R path the earlier SIMT kernel.
+            require(cases[1]["kernel_ms"] < cases[1]["plain_ms"],
+                    f"B2 R={R_BATCH}: {cases[1]['kernel_ms']} ms, plain {cases[1]['plain_ms']} ms")
+            require(cases[0]["kernel_ms"] < B2_R1_BEFORE_MS,
+                    f"B2 R=1: {cases[0]['kernel_ms']} ms, the SIMT kernel {B2_R1_BEFORE_MS} ms")
+            emit({"phase": "B2", "cases": cases, "library_ms": None,
+                  "library_note": "no single PyTorch call computes a CG solve",
+                  "ptxas": b2_ptxas, "b1_kernel_ms_r8192": kernels["pallas_matvec"]["ms"],
+                  "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+            big = cases[-1]
+            kernels["pallas_cg_solve"] = {
+                "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
+                "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+                "bound_by": big["bound_by"], "library_ms": None}
 
-    # -- serving, through each kernel ------------------------------------------
-    with Phase("reference", 240) as ph:
-        chol_mean, chol_var = predict_in_batches(make_model("xla"), params, xq,
-                                                 batch_size=R_BATCH, posterior_solver="chol")
-        xla_mean, xla_var = predict_in_batches(make_model("xla"), params, xq,
-                                               batch_size=R_BATCH, posterior_solver="cg")
-        ph.wait()
-        for name, t in (("chol_mean", chol_mean), ("chol_var", chol_var),
-                        ("xla_mean", xla_mean), ("xla_var", xla_var)):
-            require(bool(torch.isfinite(t).all()), f"{name} is not finite")
-        emit({"phase": "reference", "xla_vs_chol_mean": float((xla_mean - chol_mean).abs().max()),
-              "xla_vs_chol_var": float((xla_var - chol_var).abs().max()),
-              "wall_s": ph.elapsed()})
+        # -- serving, through each kernel ------------------------------------------
+        with Phase("reference", 240) as ph:
+            chol_mean, chol_var = predict_in_batches(make_model("xla"), params, xq,
+                                                     batch_size=R_BATCH, posterior_solver="chol")
+            xla_mean, xla_var = predict_in_batches(make_model("xla"), params, xq,
+                                                   batch_size=R_BATCH, posterior_solver="cg")
+            ph.wait()
+            for name, t in (("chol_mean", chol_mean), ("chol_var", chol_var),
+                            ("xla_mean", xla_mean), ("xla_var", xla_var)):
+                require(bool(torch.isfinite(t).all()), f"{name} is not finite")
+            emit({"phase": "reference",
+                  "xla_vs_chol_mean": float((xla_mean - chol_mean).abs().max()),
+                  "xla_vs_chol_var": float((xla_var - chol_var).abs().max()),
+                  "wall_s": ph.elapsed()})
 
-    counters = {"pallas_resident": pallas_cg_solve, "pallas": pallas_matvec}
-    served = {}
-    for impl, counted in counters.items():
-        with Phase(f"serve_{impl}", 300) as ph:
-            model = make_model(impl)
-            predict_in_batches(model, params, xq[:R_BATCH], batch_size=R_BATCH,
-                               posterior_solver="cg")  # warm-up, not counted
-            ph.wait()
-            pallas_cg_solve.launches = 0
-            pallas_matvec.launches = 0
-            t0 = time.monotonic()
-            post = model.posterior(params, solver="cg")
-            ph.wait()
-            t1 = time.monotonic()
-            mean, var = predict_in_batches(model, params, xq, batch_size=R_BATCH,
-                                           posterior_solver="cg", posterior=post)
-            ph.wait()
-            t2 = time.monotonic()
-            launches = {"pallas_cg_solve": pallas_cg_solve.launches,
-                        "pallas_matvec": pallas_matvec.launches}
-            solves = 1 + NUM_BATCHES
-            if impl == "pallas_resident":
-                require(launches == {"pallas_cg_solve": solves, "pallas_matvec": 0},
-                        f"resident route launches {launches}, want {solves} B2 solves")
-            else:
-                require(launches["pallas_matvec"] > 0 and launches["pallas_cg_solve"] == 0,
-                        f"pallas route launches {launches}")
-            kernels[counted.__name__]["launches"] = launches[counted.__name__]
-            # Steps of each solve, re-run outside the counted window.
-            steps, converged = [], []
-            _, nu_stats = model.conjugate_gradient.solve_with_stats(post.kmm_lambda,
-                                                                    params["pseudo_u"])
-            for b in range(NUM_BATCHES):
-                kmn = model.kernel.K(kp, z, xq[b * R_BATCH:(b + 1) * R_BATCH])
-                _, st = model.conjugate_gradient.solve_with_stats(post.kmm_lambda, kmn)
-                steps.append(int(st.steps))
-                converged.append(bool(st.converged))
-            require(all(converged) and bool(nu_stats.converged), "a serving solve did not converge")
-            require(mean.shape == (xq.shape[0], 1) and var.shape == (xq.shape[0], 1),
-                    f"output shapes {tuple(mean.shape)} {tuple(var.shape)}")
-            require(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
-                    "non-finite serving output")
-            require(bool((var >= 0).all()), "negative predictive variance")
-            gaps = {"mean_vs_chol": float((mean - chol_mean).abs().max()),
-                    "var_vs_chol": float((var - chol_var).abs().max()),
-                    "mean_vs_xla": float((mean - xla_mean).abs().max()),
-                    "var_vs_xla": float((var - xla_var).abs().max())}
-            require(all(v <= SERVE_ATOL for v in gaps.values()),
-                    f"serving outputs differ beyond {SERVE_ATOL}: {gaps}")
-            served[impl] = (mean, var)
-            emit({"phase": f"serve_{impl}", "launches": launches, "solves": solves,
-                  "points": int(xq.shape[0]), "batch_size": R_BATCH,
-                  "posterior_build_s": t1 - t0, "serve_s": t2 - t1,
-                  "points_per_s": xq.shape[0] / (t2 - t1),
-                  "cg_steps_nu": int(nu_stats.steps), "cg_steps_per_batch": steps,
-                  "tolerance": f"max abs gap <= {SERVE_ATOL}", **gaps,
-                  "var_min": float(var.min()), "wall_s": ph.elapsed()})
-    route_gap = max(float((served["pallas"][i] - served["pallas_resident"][i]).abs().max())
-                    for i in (0, 1))
-    require(route_gap <= SERVE_ATOL, f"the two kernel routes differ by {route_gap}")
-    serve_love_dense({"card_line": card_line, "params": params, "xq": xq,
-                      "make_model": make_model, "xla": (xla_mean, xla_var)})
-    baseline_phases({"device": device, "card_line": card_line, "kernels": kernels,
-                     "data": (x_train, y_train, x_test, y_test), "selection": (iv, u, counts),
-                     "params": params, "xq": xq})
+        counters = {"pallas_resident": pallas_cg_solve, "pallas": pallas_matvec}
+        served = {}
+        for impl, counted in counters.items():
+            with Phase(f"serve_{impl}", 300) as ph:
+                model = make_model(impl)
+                predict_in_batches(model, params, xq[:R_BATCH], batch_size=R_BATCH,
+                                   posterior_solver="cg")  # warm-up, not counted
+                ph.wait()
+                pallas_cg_solve.launches = 0
+                pallas_matvec.launches = 0
+                t0 = time.monotonic()
+                post = model.posterior(params, solver="cg")
+                ph.wait()
+                t1 = time.monotonic()
+                mean, var = predict_in_batches(model, params, xq, batch_size=R_BATCH,
+                                               posterior_solver="cg", posterior=post)
+                ph.wait()
+                t2 = time.monotonic()
+                launches = {"pallas_cg_solve": pallas_cg_solve.launches,
+                            "pallas_matvec": pallas_matvec.launches}
+                solves = 1 + NUM_BATCHES
+                if impl == "pallas_resident":
+                    require(launches == {"pallas_cg_solve": solves, "pallas_matvec": 0},
+                            f"resident route launches {launches}, want {solves} B2 solves")
+                else:
+                    require(launches["pallas_matvec"] > 0 and launches["pallas_cg_solve"] == 0,
+                            f"pallas route launches {launches}")
+                kernels[counted.__name__]["launches"] = launches[counted.__name__]
+                # Steps of each solve, re-run outside the counted window.
+                steps, converged = [], []
+                _, nu_stats = model.conjugate_gradient.solve_with_stats(post.kmm_lambda,
+                                                                        params["pseudo_u"])
+                for b in range(NUM_BATCHES):
+                    kmn = model.kernel.K(kp, z, xq[b * R_BATCH:(b + 1) * R_BATCH])
+                    _, st = model.conjugate_gradient.solve_with_stats(post.kmm_lambda, kmn)
+                    steps.append(int(st.steps))
+                    converged.append(bool(st.converged))
+                require(all(converged) and bool(nu_stats.converged),
+                        "a serving solve did not converge")
+                require(mean.shape == (xq.shape[0], 1) and var.shape == (xq.shape[0], 1),
+                        f"output shapes {tuple(mean.shape)} {tuple(var.shape)}")
+                require(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+                        "non-finite serving output")
+                require(bool((var >= 0).all()), "negative predictive variance")
+                gaps = {"mean_vs_chol": float((mean - chol_mean).abs().max()),
+                        "var_vs_chol": float((var - chol_var).abs().max()),
+                        "mean_vs_xla": float((mean - xla_mean).abs().max()),
+                        "var_vs_xla": float((var - xla_var).abs().max())}
+                require(all(v <= SERVE_ATOL for v in gaps.values()),
+                        f"serving outputs differ beyond {SERVE_ATOL}: {gaps}")
+                served[impl] = (mean, var)
+                emit({"phase": f"serve_{impl}", "launches": launches, "solves": solves,
+                      "points": int(xq.shape[0]), "batch_size": R_BATCH,
+                      "posterior_build_s": t1 - t0, "serve_s": t2 - t1,
+                      "points_per_s": xq.shape[0] / (t2 - t1),
+                      "cg_steps_nu": int(nu_stats.steps), "cg_steps_per_batch": steps,
+                      "tolerance": f"max abs gap <= {SERVE_ATOL}", **gaps,
+                      "var_min": float(var.min()), "wall_s": ph.elapsed()})
+        route_gap = max(float((served["pallas"][i] - served["pallas_resident"][i]).abs().max())
+                        for i in (0, 1))
+        require(route_gap <= SERVE_ATOL, f"the two kernel routes differ by {route_gap}")
+        serve_love_dense({"card_line": card_line, "params": params, "xq": xq,
+                          "make_model": make_model, "xla": (xla_mean, xla_var)})
+    if run("baseline"):
+        baseline_phases({"device": device, "card_line": card_line, "kernels": kernels,
+                         "data": (x_train, y_train, x_test, y_test), "selection": (iv, u, counts),
+                         "params": params, "xq": xq})
 
+    b3_train = {}
     # -- training: the dense CGGP training step through each route -------------
     m = params["inducing_points"].shape[0]
     train_rows = 1 + 2 * TRAIN_PROBES + TRAIN_BATCH  # [u | probes | logdet probes | Kmn]
@@ -4833,549 +5531,574 @@ def main() -> int:
               "batch_index_sha256": hashlib.sha256(batch_index[0].numpy().tobytes()).hexdigest(),
               "wall_s": ph.elapsed()})
 
-    # The first step in float64 ("xla", same configuration, same batch and
-    # probes) and in float32 on the plain "xla" loop: the yardstick of each
-    # kernel route's gap.
-    with Phase("reference_train", 300) as ph:
-        refs = {}
-        for config in ("plain", "chol"):
-            loss64, grads64 = loss_and_grads(train_model("xla", config), params64, batch0_64,
-                                             probe_gen())
-            loss32, grads32 = loss_and_grads(train_model("xla", config), params, batches[0],
-                                             probe_gen())
-            ph.wait()
-            refs[config] = {"loss64": loss64, "grads64": grads64,
-                            "xla_gap": relative_gaps(loss32, grads32, loss64, grads64)}
-        emit({"phase": "reference_train",
-              "fp64": {c: {"loss": float(r["loss64"]),
-                           **{f"|d {n}|": float(torch.linalg.vector_norm(r["grads64"][n]))
-                              for n in TRAINABLE}} for c, r in refs.items()},
-              "xla_fp32_gap": {c: r["xla_gap"] for c, r in refs.items()},
-              "wall_s": ph.elapsed()})
-
-    trained = {}
-
-    def train_phase(name, impl, config, budget_s, extra=None):
-        """One training route: the first step against fp64, 3 warm-up steps,
-        then TRAIN_STEPS timed steps with the launch counts set to 0 just
-        before and read just after; ``extra(ph, record)`` adds to the record
-        inside the phase."""
-        with Phase(name, budget_s) as ph:
-            model = train_model(impl, config)
-            solves, undo = record_dense_solves(cg_module)
-            try:
-                loss0, grads0 = loss_and_grads(model, params, batches[0], probe_gen())
-                step0 = [(int(s["stats"].steps), bool(s["stats"].converged)) for s in solves]
-                solves.clear()
-                step = make_adam_step(model.training_loss, adam(TRAIN_LR),
-                                      model.trainable_mask(params))
-                p, opt = params, adam(TRAIN_LR).init(params)
-                gen = probe_gen()
-                for batch in batches[1:1 + TRAIN_WARMUP]:
-                    p, opt, _ = step(p, opt, batch, gen)
+    if run("e2e"):
+        # The first step in float64 ("xla", same configuration, same batch and
+        # probes) and in float32 on the plain "xla" loop: the yardstick of each
+        # kernel route's gap.
+        with Phase("reference_train", 300) as ph:
+            refs = {}
+            for config in ("plain", "chol"):
+                loss64, grads64 = loss_and_grads(train_model("xla", config), params64, batch0_64,
+                                                 probe_gen())
+                loss32, grads32 = loss_and_grads(train_model("xla", config), params, batches[0],
+                                                 probe_gen())
                 ph.wait()
-                solves.clear()
-                for counted in (pallas_cg_solve, pallas_matvec, gram_matvec, kuu_matvec):
-                    counted.launches = 0
-                t0 = time.monotonic()
-                losses = []
-                for batch in batches[1 + TRAIN_WARMUP:]:
-                    p, opt, loss = step(p, opt, batch, gen)
-                    losses.append(loss)
+                refs[config] = {"loss64": loss64, "grads64": grads64,
+                                "xla_gap": relative_gaps(loss32, grads32, loss64, grads64)}
+            emit({"phase": "reference_train",
+                  "fp64": {c: {"loss": float(r["loss64"]),
+                               **{f"|d {n}|": float(torch.linalg.vector_norm(r["grads64"][n]))
+                                  for n in TRAINABLE}} for c, r in refs.items()},
+                  "xla_fp32_gap": {c: r["xla_gap"] for c, r in refs.items()},
+                  "wall_s": ph.elapsed()})
+
+        trained = {}
+
+        def train_phase(name, impl, config, budget_s, extra=None):
+            """One training route: the first step against fp64, 3 warm-up steps,
+            then TRAIN_STEPS timed steps with the launch counts set to 0 just
+            before and read just after; ``extra(ph, record)`` adds to the record
+            inside the phase."""
+            with Phase(name, budget_s) as ph:
+                model = train_model(impl, config)
+                solves, undo = record_dense_solves(cg_module)
+                try:
+                    loss0, grads0 = loss_and_grads(model, params, batches[0], probe_gen())
+                    step0 = [(int(s["stats"].steps), bool(s["stats"].converged)) for s in solves]
+                    solves.clear()
+                    step = make_adam_step(model.training_loss, adam(TRAIN_LR),
+                                          model.trainable_mask(params))
+                    p, opt = params, adam(TRAIN_LR).init(params)
+                    gen = probe_gen()
+                    for batch in batches[1:1 + TRAIN_WARMUP]:
+                        p, opt, _ = step(p, opt, batch, gen)
+                    ph.wait()
+                    solves.clear()
+                    for counted in (pallas_cg_solve, pallas_matvec, gram_matvec, kuu_matvec):
+                        counted.launches = 0
+                    t0 = time.monotonic()
+                    losses = []
+                    for batch in batches[1 + TRAIN_WARMUP:]:
+                        p, opt, loss = step(p, opt, batch, gen)
+                        losses.append(loss)
+                    ph.wait()
+                    window_s = time.monotonic() - t0
+                    launches = {counted.__name__: counted.launches for counted in
+                                (pallas_cg_solve, pallas_matvec, gram_matvec, kuu_matvec)}
+                finally:
+                    undo()
+                # Everything below reads the window's results after it.
+                steps_run = len(losses)
+                require(steps_run == TRAIN_STEPS, f"{name}: {steps_run} steps, want {TRAIN_STEPS}")
+                require(len(solves) == 2 * steps_run,
+                        f"{name}: {len(solves)} CG solves, want a forward and a backward a step")
+                fwd = [(int(s["stats"].steps), bool(s["stats"].converged)) for s in solves[0::2]]
+                bwd = [(int(s["stats"].steps), bool(s["stats"].converged)) for s in solves[1::2]]
+                require(all(int(s["rhs"].shape[0]) == train_rows for s in solves),
+                        f"{name}: a solve's block is not [{train_rows}, {m}]")
+                # B3 is off the dense path (it carries the matrix-free phases).
+                want = {"pallas_cg_solve": 0, "pallas_matvec": 0, "gram_matvec": 0, "kuu_matvec": 0}
+                if impl == "pallas_resident":
+                    want["pallas_cg_solve"] = 2 * steps_run
+                elif impl == "pallas":
+                    # every matvec: the initial residual and one a step, both passes
+                    want["pallas_matvec"] = sum(k + 1 for k, _ in fwd + bwd)
+                require(launches == want, f"{name}: launches {launches}, want {want}")
+                losses = [float(v) for v in losses]
+                require(all(math.isfinite(v) for v in losses), f"{name}: non-finite loss {losses}")
+                leaves = [v for sub in p.values() for v in (sub.values() if isinstance(sub, dict)
+                                                            else [sub])]
+                require(all(bool(torch.isfinite(v).all()) for v in leaves),
+                        f"{name}: non-finite parameters after training")
+                gaps = relative_gaps(loss0, grads0, refs[config]["loss64"], refs[config]["grads64"])
+                xla_gap = refs[config]["xla_gap"]
+                gap_over_xla = {k: (gaps[k] / xla_gap[k] if xla_gap[k] > 0
+                                    else 0.0 if gaps[k] == 0 else math.inf) for k in gaps}
+                if impl != "xla":
+                    # The rule of every kernel phase: no further from float64
+                    # than twice the float32 plain route, for the loss and for
+                    # each gradient on its own.
+                    require(all(math.isfinite(v) and v <= 2.0 for v in gap_over_xla.values()),
+                            f"{name}: first step {gaps} from fp64, xla fp32 {xla_gap}")
+                record = {"phase": name, "matvec_impl": impl, "config": config,
+                          "steps": steps_run, "window_s": window_s,
+                          "steps_per_s": steps_run / window_s,
+                          "ms_per_step": window_s * 1e3 / steps_run, "launches": launches,
+                          "cg_steps_forward": [k for k, _ in fwd],
+                          "cg_steps_backward": [k for k, _ in bwd],
+                          "converged_forward": [c for _, c in fwd],
+                          "converged_backward": [c for _, c in bwd],
+                          "loss_first": losses[0], "loss_last": losses[-1],
+                          "step0": {"loss": float(loss0),
+                                    **{f"|d {n}|": float(torch.linalg.vector_norm(grads0[n]))
+                                       for n in TRAINABLE},
+                                    "cg_steps": [k for k, _ in step0],
+                                    "converged": [c for _, c in step0],
+                                    "gap_vs_fp64": gaps, "xla_fp32_gap_vs_fp64": xla_gap,
+                                    "gap_over_xla_fp32_gap": gap_over_xla},
+                          "tolerance": "first-step loss and each gradient: the relative gap "
+                                       "from fp64 at most 2x the fp32 xla route's",
+                          "nvidia_smi": card_line}
+                trained[name] = {"record": record, "solves": solves, "step0": step0,
+                                 "launches": launches, "steps": steps_run}
+                if extra is not None:
+                    extra(ph, record)
+                record["wall_s"] = ph.elapsed()
+                emit(record)
+
+        def b2_at_training_shape(ph, record):
+            # B2 at the training shape: the first timed step's forward block and
+            # its backward block (the cotangents: rows of mixed scale, the logdet
+            # probes' rows zero), against the plain loop and the fp64 solve.
+            cases = []
+            for label, rec in zip(("forward", "backward"),
+                                  trained["train_pallas_resident"]["solves"][:2]):
+                a32 = rec["matrix"].float().contiguous()
+                rhs32 = rec["rhs"].float().contiguous()
+                rows = rhs32.shape[0]
+                plan = pallas_cg_plan(rows, m, device)
+                got, steps = pallas_cg_solve(a32, rhs32, CG_THRESHOLD, m)
+                want, steps_plain = pallas_cg_solve_plain(a32, rhs32, CG_THRESHOLD, m)
                 ph.wait()
-                window_s = time.monotonic() - t0
-                launches = {counted.__name__: counted.launches for counted in
-                            (pallas_cg_solve, pallas_matvec, gram_matvec, kuu_matvec)}
-            finally:
-                undo()
-            # Everything below reads the window's results after it.
-            steps_run = len(losses)
-            require(steps_run == TRAIN_STEPS, f"{name}: {steps_run} steps, want {TRAIN_STEPS}")
-            require(len(solves) == 2 * steps_run,
-                    f"{name}: {len(solves)} CG solves, want a forward and a backward a step")
-            fwd = [(int(s["stats"].steps), bool(s["stats"].converged)) for s in solves[0::2]]
-            bwd = [(int(s["stats"].steps), bool(s["stats"].converged)) for s in solves[1::2]]
-            require(all(int(s["rhs"].shape[0]) == train_rows for s in solves),
-                    f"{name}: a solve's block is not [{train_rows}, {m}]")
-            # B3 is off the dense path (it carries the matrix-free phases).
-            want = {"pallas_cg_solve": 0, "pallas_matvec": 0, "gram_matvec": 0, "kuu_matvec": 0}
-            if impl == "pallas_resident":
-                want["pallas_cg_solve"] = 2 * steps_run
-            elif impl == "pallas":
-                # every matvec: the initial residual and one a step, both passes
-                want["pallas_matvec"] = sum(k + 1 for k, _ in fwd + bwd)
-            require(launches == want, f"{name}: launches {launches}, want {want}")
-            losses = [float(v) for v in losses]
-            require(all(math.isfinite(v) for v in losses), f"{name}: non-finite loss {losses}")
-            leaves = [v for sub in p.values() for v in (sub.values() if isinstance(sub, dict)
-                                                        else [sub])]
-            require(all(bool(torch.isfinite(v).all()) for v in leaves),
-                    f"{name}: non-finite parameters after training")
-            gaps = relative_gaps(loss0, grads0, refs[config]["loss64"], refs[config]["grads64"])
-            xla_gap = refs[config]["xla_gap"]
-            gap_over_xla = {k: (gaps[k] / xla_gap[k] if xla_gap[k] > 0
-                                else 0.0 if gaps[k] == 0 else math.inf) for k in gaps}
-            if impl != "xla":
-                # The rule of every kernel phase: no further from float64
-                # than twice the float32 plain route, for the loss and for
-                # each gradient on its own.
-                require(all(math.isfinite(v) and v <= 2.0 for v in gap_over_xla.values()),
-                        f"{name}: first step {gaps} from fp64, xla fp32 {xla_gap}")
-            record = {"phase": name, "matvec_impl": impl, "config": config,
-                      "steps": steps_run, "window_s": window_s,
-                      "steps_per_s": steps_run / window_s,
-                      "ms_per_step": window_s * 1e3 / steps_run, "launches": launches,
-                      "cg_steps_forward": [k for k, _ in fwd],
-                      "cg_steps_backward": [k for k, _ in bwd],
-                      "converged_forward": [c for _, c in fwd],
-                      "converged_backward": [c for _, c in bwd],
-                      "loss_first": losses[0], "loss_last": losses[-1],
-                      "step0": {"loss": float(loss0),
-                                **{f"|d {n}|": float(torch.linalg.vector_norm(grads0[n]))
-                                   for n in TRAINABLE},
-                                "cg_steps": [k for k, _ in step0],
-                                "converged": [c for _, c in step0],
-                                "gap_vs_fp64": gaps, "xla_fp32_gap_vs_fp64": xla_gap,
-                                "gap_over_xla_fp32_gap": gap_over_xla},
-                      "tolerance": "first-step loss and each gradient: the relative gap "
-                                   "from fp64 at most 2x the fp32 xla route's",
-                      "nvidia_smi": card_line}
-            trained[name] = {"record": record, "solves": solves, "step0": step0,
-                             "launches": launches, "steps": steps_run}
-            if extra is not None:
-                extra(ph, record)
-            record["wall_s"] = ph.elapsed()
-            emit(record)
-
-    def b2_at_training_shape(ph, record):
-        # B2 at the training shape: the first timed step's forward block and
-        # its backward block (the cotangents: rows of mixed scale, the logdet
-        # probes' rows zero), against the plain loop and the fp64 solve.
-        cases = []
-        for label, rec in zip(("forward", "backward"),
-                              trained["train_pallas_resident"]["solves"][:2]):
-            a32 = rec["matrix"].float().contiguous()
-            rhs32 = rec["rhs"].float().contiguous()
-            rows = rhs32.shape[0]
-            plan = pallas_cg_plan(rows, m, device)
-            got, steps = pallas_cg_solve(a32, rhs32, CG_THRESHOLD, m)
-            want, steps_plain = pallas_cg_solve_plain(a32, rhs32, CG_THRESHOLD, m)
-            ph.wait()
-            steps, steps_plain = int(steps), int(steps_plain)
-            exact = torch.linalg.solve(a32.double(), rhs32.double().T).T
-            err_exact = float((got.double() - exact).abs().max())
-            err_exact_plain = float((want.double() - exact).abs().max())
-            err = float((got - want).abs().max())
-            row_norms = torch.linalg.vector_norm(rhs32, dim=1)
-            zero_rows = int((row_norms == 0).sum())
-            del exact
-            require(err_exact <= 2.0 * err_exact_plain,
-                    f"B2 training {label}: {err_exact} from fp64, plain fp32 {err_exact_plain}")
-            require(abs(steps - steps_plain) <= max(3, 0.05 * steps_plain),
-                    f"B2 training {label}: steps {steps} vs plain {steps_plain}")
-            require(bool(torch.all(got[row_norms == 0] == 0)),
-                    f"B2 training {label}: a zero row's solution is not zero")
-            times = timed_in_turns(
-                ph, {"plain": lambda: pallas_cg_solve_plain(a32, rhs32, CG_THRESHOLD, m),
-                     "kernel": lambda: pallas_cg_solve(a32, rhs32, CG_THRESHOLD, m)},
-                ["plain", "kernel", "kernel", "plain"], reps=1)
-            (bound, bound_by, bound_what, parts), _ = b2_bound(rows, m, steps, plan)
-            cases.append({"solve": label, "rows": rows, "m": m, "plan": plan, "steps": steps,
-                          "steps_plain": steps_plain, "zero_rows": zero_rows,
-                          "row_norm_max_over_min_nonzero": float(
-                              row_norms.max() / row_norms[row_norms > 0].min()),
-                          "max_abs_err": err, "max_abs_err_vs_fp64_solve": err_exact,
-                          "plain_max_abs_err_vs_fp64_solve": err_exact_plain,
-                          "kernel_ms": float(np.mean(times["kernel"])),
-                          "plain_ms": float(np.mean(times["plain"])), "turns_ms": times,
-                          "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
-                          "bound_parts_ms": parts})
-        b2_ms = sum(c["kernel_ms"] for c in cases)
-        record.update({"b2_at_training_shape": cases, "b2_ms_per_step": b2_ms,
-                       "b2_share_of_step": b2_ms / record["ms_per_step"]})
-        kernels["pallas_cg_solve"].update({
-            "train_launches": record["launches"]["pallas_cg_solve"],
-            "train_steps": record["steps"], "train_ms": cases[0]["kernel_ms"],
-            "train_backward_ms": cases[1]["kernel_ms"], "train_bound_ms": cases[0]["bound_ms"],
-            "train_backward_bound_ms": cases[1]["bound_ms"]})
-
-    def b1_at_training_shape(ph, record):
-        rec = trained["train_pallas_chol"]["solves"][0]
-        a32 = rec["matrix"].float().contiguous()
-        p = rec["rhs"].float().contiguous()  # a [2059, 989] block of the path's shape
-        rows = p.shape[0]
-        got = pallas_matvec(p, a32)
-        want = pallas_matvec_plain(p, a32)
-        ph.wait()
-        exact = p.double() @ a32.double()
-        err_fp64 = float((got.double() - exact).abs().max())
-        plain_err_fp64 = float((want.double() - exact).abs().max())
-        del exact
-        require(err_fp64 <= 2.0 * plain_err_fp64,
-                f"B1 training shape: {err_fp64} from fp64, plain fp32 {plain_err_fp64}")
-        times = timed_in_turns(ph, {"plain": lambda: pallas_matvec_plain(p, a32),
-                                    "kernel": lambda: pallas_matvec(p, a32),
-                                    "library": lambda: torch.matmul(p, a32)},
-                               ["plain", "kernel", "library", "kernel", "library", "plain"],
-                               reps=20)
-        b1_ms = float(np.mean(times["kernel"]))
-        bound, bound_by, bound_what, parts = bound_parts(
-            4.0 * (2 * rows * m + m * m), 2.0 * rows * m * m, 2.0 * rows * m * m)
-        lam0 = torch.zeros(m, device=device)
-        chol_build_ms = event_ms(ph, lambda: CholPreconditioner(a32, lam0), reps=5)
-        solves = trained["train_pallas_chol"]["solves"]
-        refinement = [int(s["stats"].steps) for s in solves]
-        launches_per_step = record["launches"]["pallas_matvec"] / record["steps"]
-        step_ms = record["ms_per_step"]
-        record.update({"refinement_iterations": refinement,
-                       "b1_at_training_shape": {
-                           "rows": rows, "m": m, "max_abs_err_vs_fp64": err_fp64,
-                           "plain_max_abs_err_vs_fp64": plain_err_fp64,
-                           "kernel_ms": b1_ms, "plain_ms": float(np.mean(times["plain"])),
-                           "library_ms": float(np.mean(times["library"])), "turns_ms": times,
-                           "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
-                           "bound_parts_ms": parts},
-                       "b1_launches_per_step": launches_per_step,
-                       "b1_ms_per_step": launches_per_step * b1_ms,
-                       "b1_share_of_step": launches_per_step * b1_ms / step_ms,
-                       "chol_build_ms": chol_build_ms,
-                       "chol_build_share_of_step": chol_build_ms / step_ms})
-        kernels["pallas_matvec"].update({
-            "train_launches": record["launches"]["pallas_matvec"], "train_steps": record["steps"],
-            "train_ms": b1_ms, "train_bound_ms": bound})
-
-    # B2 for the whole forward and backward solve of every step; B1 for every
-    # matvec of the exact-factor refinement, both passes; the plain "xla"
-    # loop in the resident route's configuration, the yardstick.
-    train_phase("train_pallas_resident", "pallas_resident", "plain", 300, b2_at_training_shape)
-    train_phase("train_pallas_chol", "pallas", "chol", 240, b1_at_training_shape)
-    train_phase("train_xla", "xla", "plain", 300)
-
-    # The JAX package's first step (JAX_TRAIN_STEP0): B2's forward and
-    # backward steps within max(3, 5 %) of JAX's on the same batch and probes.
-    with Phase("check_train_jax", 30):
-        require(JAX_TRAIN_STEP0 is not None, "no JAX reference for the first training step")
-        require(probes_sha256 == JAX_TRAIN_STEP0["probes_sha256"],
-                "the first step's probes are not those JAX's values were taken with")
-        step0 = trained["train_pallas_resident"]["step0"]
-        for (got, _), ref, label in zip(step0, JAX_TRAIN_STEP0["cg_steps"],
-                                        ("forward", "backward")):
-            require(abs(got - ref) <= max(3, 0.05 * ref),
-                    f"train_pallas_resident: first-step {label} steps {got} vs JAX {ref}")
-        port = trained["train_pallas_resident"]["record"]["step0"]
-        emit({"phase": "check_train_jax", "jax_cpu_fp32": JAX_TRAIN_STEP0,
-              "port_b2": {k: port[k] for k in ("loss", "cg_steps", "converged",
-                                               *(f"|d {n}|" for n in TRAINABLE))},
-              "tolerance": "B2's first-step forward and backward steps within max(3, 5 %) "
-                           "of JAX's"})
-    e2e_phases({"device": device, "card_line": card_line, "params": params,
-                "train_model": train_model, "data": (xt, yt),
-                "test_data": (x_test, y_test), "selection_path": selection_path,
-                "kernels": kernels})
-
-    # B3 is off the dense training path (the matrix-free model trains in its
-    # own phases): its launches read in the three dense windows, all steps.
-    b3_train = {"train_launches": sum(t["launches"]["gram_matvec"] + t["launches"]["kuu_matvec"]
-                                      for t in trained.values()),
-                "train_steps": sum(t["steps"] for t in trained.values())}
-    del trained, batches, xt, yt
-
-    # -- setup_implicit: the matrix-free workload ------------------------------
-    with Phase("setup_implicit", 120) as ph:
-        meta = {"n": 435_000, "dim": 3, "seed": 0, "res": 0.15}
-        with np.load(implicit_selection_path) as sel:
-            require(all(float(sel[k]) == v for k, v in meta.items()),
-                    f"implicit selection metadata differs from {meta}")
-            iv, u, counts = sel["iv"], sel["u"], sel["counts"]
-        require(iv.shape == (IMPLICIT_M, 3), f"implicit inducing set shape {iv.shape}")
-
-        def make_implicit(use_pallas, threshold=IMPLICIT_THRESHOLD, max_cg=IMPLICIT_MAX_CG):
-            return ImplicitCGGP(kernel=Matern32(), num_data=n_train, block=IMPLICIT_BLOCK,
-                                precondition="pivchol", precond_rank=128,
-                                relative_threshold=True, error_threshold=threshold,
-                                max_cg_iterations=max_cg, num_probes=TRAIN_PROBES,
-                                use_pallas=use_pallas)
-
-        iparams = make_implicit(True).init_params(iv, pseudo_u=u, cluster_counts=counts,
-                                                  dtype=torch.float32, device=device)
-        imask = iparams["inducing_mask"][:, 0]
-        num_pads = int((imask == 0).sum())
-        m_pad = iparams["inducing_points"].shape[0]
-        require(m_pad == IMPLICIT_M_PAD and num_pads == IMPLICIT_M_PAD - IMPLICIT_M,
-                f"padded M {m_pad} with {num_pads} pads")
-        ixq = xq[:IMPLICIT_BATCHES * R_BATCH]
-        ikp = iparams["kernel"]
-        iz_scaled = (iparams["inducing_points"] / Matern32().lengthscales(ikp)).contiguous()
-        ilam = make_implicit(True).diag_variance(iparams)[:, 0].contiguous()
-        ivar = Matern32().variance(ikp).reshape(1).contiguous()
-        emit({"phase": "setup_implicit", "m": IMPLICIT_M, "m_pad": m_pad, "pads": num_pads,
-              "block": IMPLICIT_BLOCK, "query_points": int(ixq.shape[0]),
-              "wall_s": ph.elapsed()})
-
-    # -- B3: gram_matvec / kuu_matvec ------------------------------------------
-    with Phase("B3", 240) as ph:
-        gen = torch.Generator(device=device).manual_seed(1)
-        cases = []
-
-        def b3_case(label, fn, plain, plain_abs, shape, kernel_name, nbytes, reps, loader,
-                    exact=None, emulated=None, gate_fp64=False):
-            got = fn()
-            want = plain()
-            ph.wait()
-            require(bool(torch.isfinite(got).all()), f"B3 {label}: non-finite output")
-            err = float((got - want).abs().max())
-            # Both are fp32-accurate sums of M nonnegative kernel values times
-            # B in other orders: the gap is a few ulps of sum |B| K
-            # (random-walk estimate sqrt(M) eps = 1.2e-5 of it at M = 10240).
-            scale = float(plain_abs().max())
-            tol = 5e-5 * scale
-            require(err <= tol, f"B3 {label}: max abs err {err} > {tol}")
-            accuracy = {}
-            if exact is not None:
-                reference = exact()
-                err_fp64 = float((got.double() - reference).abs().max())
-                plain_err_fp64 = float((want.double() - reference).abs().max())
-                del reference
-                accuracy = {"max_abs_err_vs_fp64": err_fp64,
-                            "plain_max_abs_err_vs_fp64": plain_err_fp64}
-                if gate_fp64:
-                    require(err_fp64 <= 2.0 * plain_err_fp64,
-                            f"B3 {label}: {err_fp64} from fp64, plain fp32 {plain_err_fp64}")
-            if emulated is not None:
-                rows_emulated, emulated_out = emulated()
-                accuracy["max_abs_err_vs_3xtf32_emulation"] = float(
-                    (got[:rows_emulated] - emulated_out).abs().max())
-            times = timed_in_turns(ph, {"plain": plain, "kernel": fn},
-                                   ["plain", "kernel", "kernel", "plain"], reps=reps)
-            n, m, d, r = shape
-            graph = {"kernel": graph_ms(ph, fn)} if r == 1 else None
-            bound, bound_by, bound_what, parts = gram_bound(
-                n, m, d, r, kernel_name, sm_clock_mhz * 1e6, nbytes)
-            case = {"case": label, "kernel": kernel_name, "n": n, "m": m, "d": d, "r": r,
-                    "b_loader": loader, "max_abs_err": err, "max_rel_err": err / scale, **accuracy,
-                    "tolerance": f"max_abs_err <= 5e-5 * max(|B| K) = {tol:.3g}"
-                                 + ("; vs fp64 <= 2x the plain version's" if gate_fp64 else ""),
-                    "kernel_ms": float(np.mean(times["kernel"])),
-                    "plain_ms": float(np.mean(times["plain"])), "turns_ms": times,
-                    "graph_ms": graph, "bound_ms": bound, "bound_by": bound_by,
-                    "bound_detail": bound_what, "bound_parts_ms": parts,
-                    "simt_bound_ms": max(parts["fp32 FMA"], parts["special functions"],
-                                         parts["bytes"]),
-                    "library_ms": None}
-            cases.append(case)
-            return case
-
-        m = IMPLICIT_M_PAD
-        z64 = iz_scaled.double()
-        b_loader = None
-        for rows in (1, R_BATCH):
-            # The path's operand: p * mask (pad columns zero), pads in place.
-            p = (torch.randn(rows, m, generator=gen, device=device) * imask).contiguous()
-            p_abs = p.abs()
-
-            def kuu_exact(p=p):
-                # The same function in fp64 from the same fp32 inputs.
-                k64 = kernel_value_from_r2("matern32", scaled_squared_distance(z64, z64),
-                                           ivar.double().reshape(()))
-                return p.double() @ k64 + p.double() * ilam.double()
-
-            def kuu_emulated(p=p):
-                return 256, kuu_matvec_3xtf32_emulated(iz_scaled, ilam, p[:256], ivar,
-                                                       "matern32")
-
-            b3_case(f"kuu_matvec R={rows}",
-                    lambda: kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
-                    lambda: kuu_matvec_plain(iz_scaled, ilam, p, ivar, "matern32"),
-                    lambda: kuu_matvec_plain(iz_scaled, ilam, p_abs, ivar, "matern32"),
-                    (m, m, 3, rows), "matern32", 4.0 * (m * 3 + m + 1 + 2 * rows * m),
-                    reps=3 if rows > 1 else 20, loader=b3_loader(p, rows, m, 1), exact=kuu_exact,
-                    emulated=kuu_emulated if rows > 8 else None, gate_fp64=rows > 8)
-            if rows > 8:
-                # The same p one word into a buffer: its rows are no longer
-                # 16-byte aligned, so the tiled launch copies its B tiles by
-                # cp.async instead of TMA.  The arithmetic is the same, so the
-                # output must be bitwise equal; the two loaders are timed in
-                # turns.
-                p_off = torch.empty(rows * m + 1, device=device)[1:].view(rows, m)
-                p_off.copy_(p)
-                same = torch.equal(kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
-                                   kuu_matvec(iz_scaled, ilam, p_off, ivar, "matern32"))
-                require(same, f"B3 kuu_matvec R={rows}: an offset view of p changes the output")
+                steps, steps_plain = int(steps), int(steps_plain)
+                exact = torch.linalg.solve(a32.double(), rhs32.double().T).T
+                err_exact = float((got.double() - exact).abs().max())
+                err_exact_plain = float((want.double() - exact).abs().max())
+                err = float((got - want).abs().max())
+                row_norms = torch.linalg.vector_norm(rhs32, dim=1)
+                zero_rows = int((row_norms == 0).sum())
+                del exact
+                require(err_exact <= 2.0 * err_exact_plain,
+                        f"B2 training {label}: {err_exact} from fp64, plain fp32 {err_exact_plain}")
+                require(abs(steps - steps_plain) <= max(3, 0.05 * steps_plain),
+                        f"B2 training {label}: steps {steps} vs plain {steps_plain}")
+                require(bool(torch.all(got[row_norms == 0] == 0)),
+                        f"B2 training {label}: a zero row's solution is not zero")
                 times = timed_in_turns(
-                    ph, {"aligned": lambda: kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
-                         "offset": lambda: kuu_matvec(iz_scaled, ilam, p_off, ivar, "matern32")},
-                    ["aligned", "offset", "offset", "aligned"], reps=3)
-                b_loader = {"rows": rows, "aligned_ms": float(np.mean(times["aligned"])),
-                            "offset_ms": float(np.mean(times["offset"])), "turns_ms": times,
-                            "bitwise_equal": same, "aligned": b3_loader(p, rows, m, 1),
-                            "offset": b3_loader(p_off, rows, m, 1)}
-                del p_off
-        # The matrix-free training shape: a step's fused block of 2059 rows.
-        p = (torch.randn(IMPLICIT_TRAIN_ROWS, m, generator=gen, device=device)
-             * imask).contiguous()
-        p_abs = p.abs()
-        train_case = b3_case(
-            f"kuu_matvec R={IMPLICIT_TRAIN_ROWS} (training)",
-            lambda: kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
-            lambda: kuu_matvec_plain(iz_scaled, ilam, p, ivar, "matern32"),
-            lambda: kuu_matvec_plain(iz_scaled, ilam, p_abs, ivar, "matern32"),
-            (m, m, 3, IMPLICIT_TRAIN_ROWS), "matern32",
-            4.0 * (m * 3 + m + 1 + 2 * IMPLICIT_TRAIN_ROWS * m), reps=5,
-            loader=b3_loader(p, IMPLICIT_TRAIN_ROWS, m, 1),
-            exact=lambda p=p: kuu_exact(p), gate_fp64=True)
-        del p, p_abs
-        xg = xq[:R_BATCH].contiguous()
-        v = (torch.randn(m, 1, generator=gen, device=device) * imask[:, None]).contiguous()
-        v_abs = v.abs()
-        b3_case("gram_matvec R=1", lambda: gram_matvec(xg, iz_scaled, v, ivar, "matern32"),
-                lambda: gram_matvec_plain(xg, iz_scaled, v, ivar, "matern32"),
-                lambda: gram_matvec_plain(xg, iz_scaled, v_abs, ivar, "matern32"),
-                (R_BATCH, m, 3, 1), "matern32", 4.0 * ((R_BATCH + m) * 3 + m + 1 + R_BATCH),
-                reps=20, loader=b3_loader(v, 1, 1, 1))
-        # Ragged cases of every family: the small launch (R = 5) and the
-        # tiled one reading B transposed (R = 37 at D = 5, R = 130 at D = 32).
-        for n_r, m_r, d_r, r_r in ((1000, 777, 3, 5), (1000, 777, 5, 37), (333, 1001, 32, 130)):
-            for kernel_name in ("se", "matern12", "matern32", "matern52"):
-                xr = (torch.rand(n_r, d_r, generator=gen, device=device) * 4 - 2).contiguous()
-                zr = (torch.rand(m_r, d_r, generator=gen, device=device) * 4 - 2).contiguous()
-                vr = torch.randn(m_r, r_r, generator=gen, device=device)
-                vr_abs = vr.abs()
-                b3_case(f"gram_matvec ragged {kernel_name} R={r_r}",
-                        lambda: gram_matvec(xr, zr, vr, 1.3, kernel_name),
-                        lambda: gram_matvec_plain(xr, zr, vr, 1.3, kernel_name),
-                        lambda: gram_matvec_plain(xr, zr, vr_abs, 1.3, kernel_name),
-                        (n_r, m_r, d_r, r_r), kernel_name,
-                        4.0 * ((n_r + m_r) * d_r + m_r * r_r + 1 + n_r * r_r), reps=10,
-                        loader=b3_loader(vr, r_r, 1, r_r))
-        emit({"phase": "B3", "cases": cases, "b_loader": b_loader, "library_ms": None,
-              "library_note": "no single PyTorch call builds and contracts the Gram matrix",
-              "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, 16 special-function "
-                      "results/clock/SM x 132 SMs at the max SM clock, HBM 3.35 TB/s (H100 SXM)",
-              "nvidia_smi": card_line, "wall_s": ph.elapsed()})
-        big = cases[1]
-        kernels.setdefault("gram_matvec", {}).update({
-            "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
-            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-            "bound_by": big["bound_by"], "library_ms": None,
-            "implicit_train_ms": train_case["kernel_ms"],
-            "implicit_train_plain_ms": train_case["plain_ms"],
-            "implicit_train_bound_ms": train_case["bound_ms"]})
+                    ph, {"plain": lambda: pallas_cg_solve_plain(a32, rhs32, CG_THRESHOLD, m),
+                         "kernel": lambda: pallas_cg_solve(a32, rhs32, CG_THRESHOLD, m)},
+                    ["plain", "kernel", "kernel", "plain"], reps=1)
+                (bound, bound_by, bound_what, parts), _ = b2_bound(rows, m, steps, plan)
+                cases.append({"solve": label, "rows": rows, "m": m, "plan": plan, "steps": steps,
+                              "steps_plain": steps_plain, "zero_rows": zero_rows,
+                              "row_norm_max_over_min_nonzero": float(
+                                  row_norms.max() / row_norms[row_norms > 0].min()),
+                              "max_abs_err": err, "max_abs_err_vs_fp64_solve": err_exact,
+                              "plain_max_abs_err_vs_fp64_solve": err_exact_plain,
+                              "kernel_ms": float(np.mean(times["kernel"])),
+                              "plain_ms": float(np.mean(times["plain"])), "turns_ms": times,
+                              "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
+                              "bound_parts_ms": parts})
+            b2_ms = sum(c["kernel_ms"] for c in cases)
+            record.update({"b2_at_training_shape": cases, "b2_ms_per_step": b2_ms,
+                           "b2_share_of_step": b2_ms / record["ms_per_step"]})
+            kernels["pallas_cg_solve"].update({
+                "train_launches": record["launches"]["pallas_cg_solve"],
+                "train_steps": record["steps"], "train_ms": cases[0]["kernel_ms"],
+                "train_backward_ms": cases[1]["kernel_ms"], "train_bound_ms": cases[0]["bound_ms"],
+                "train_backward_bound_ms": cases[1]["bound_ms"]})
 
-    # -- reference_implicit: the fp64 Cholesky posterior ----------------------
-    with Phase("reference_implicit", 180) as ph:
-        oracle = ClusterGP(kernel=Matern32(), num_data=n_train)
-        oparams = oracle.init_params(iv, pseudo_u=u, cluster_counts=counts,
-                                     dtype=torch.float64, device=device)
-        ref_mean, ref_var = oracle.predict_f(oparams, ixq.double())
-        ph.wait()
-        require(bool(torch.isfinite(ref_mean).all() and torch.isfinite(ref_var).all()),
-                "the fp64 Cholesky posterior is not finite")
-        emit({"phase": "reference_implicit", "points": int(ixq.shape[0]),
-              "mean_abs_max": float(ref_mean.abs().max()), "var_min": float(ref_var.min()),
-              "var_max": float(ref_var.max()), "wall_s": ph.elapsed()})
-
-    def serve_implicit(name, use_pallas, threshold, xs, atol, budget_s):
-        with Phase(name, budget_s) as ph:
-            model = make_implicit(use_pallas, threshold)
-            solves = record_solves(model)
-            gram_matvec.launches = 0
-            kuu_matvec.launches = 0
-            t0 = time.monotonic()
-            post = model.posterior(iparams, solver="cg")
+        def b1_at_training_shape(ph, record):
+            rec = trained["train_pallas_chol"]["solves"][0]
+            a32 = rec["matrix"].float().contiguous()
+            p = rec["rhs"].float().contiguous()  # a [2059, 989] block of the path's shape
+            rows = p.shape[0]
+            got = pallas_matvec(p, a32)
+            want = pallas_matvec_plain(p, a32)
             ph.wait()
-            t1 = time.monotonic()
-            mean, var = predict_in_batches(model, iparams, xs, batch_size=R_BATCH,
-                                           posterior_solver="cg", posterior=post)
+            exact = p.double() @ a32.double()
+            err_fp64 = float((got.double() - exact).abs().max())
+            plain_err_fp64 = float((want.double() - exact).abs().max())
+            del exact
+            require(err_fp64 <= 2.0 * plain_err_fp64,
+                    f"B1 training shape: {err_fp64} from fp64, plain fp32 {plain_err_fp64}")
+            times = timed_in_turns(ph, {"plain": lambda: pallas_matvec_plain(p, a32),
+                                        "kernel": lambda: pallas_matvec(p, a32),
+                                        "library": lambda: torch.matmul(p, a32)},
+                                   ["plain", "kernel", "library", "kernel", "library", "plain"],
+                                   reps=20)
+            b1_ms = float(np.mean(times["kernel"]))
+            bound, bound_by, bound_what, parts = bound_parts(
+                4.0 * (2 * rows * m + m * m), 2.0 * rows * m * m, 2.0 * rows * m * m)
+            lam0 = torch.zeros(m, device=device)
+            chol_build_ms = event_ms(ph, lambda: CholPreconditioner(a32, lam0), reps=5)
+            solves = trained["train_pallas_chol"]["solves"]
+            refinement = [int(s["stats"].steps) for s in solves]
+            launches_per_step = record["launches"]["pallas_matvec"] / record["steps"]
+            step_ms = record["ms_per_step"]
+            record.update({"refinement_iterations": refinement,
+                           "b1_at_training_shape": {
+                               "rows": rows, "m": m, "max_abs_err_vs_fp64": err_fp64,
+                               "plain_max_abs_err_vs_fp64": plain_err_fp64,
+                               "kernel_ms": b1_ms, "plain_ms": float(np.mean(times["plain"])),
+                               "library_ms": float(np.mean(times["library"])), "turns_ms": times,
+                               "bound_ms": bound, "bound_by": bound_by, "bound_detail": bound_what,
+                               "bound_parts_ms": parts},
+                           "b1_launches_per_step": launches_per_step,
+                           "b1_ms_per_step": launches_per_step * b1_ms,
+                           "b1_share_of_step": launches_per_step * b1_ms / step_ms,
+                           "chol_build_ms": chol_build_ms,
+                           "chol_build_share_of_step": chol_build_ms / step_ms})
+            kernels["pallas_matvec"].update({
+                "train_launches": record["launches"]["pallas_matvec"],
+                "train_steps": record["steps"],
+                "train_ms": b1_ms, "train_bound_ms": bound})
+
+        # B2 for the whole forward and backward solve of every step; B1 for every
+        # matvec of the exact-factor refinement, both passes; the plain "xla"
+        # loop in the resident route's configuration, the yardstick.
+        train_phase("train_pallas_resident", "pallas_resident", "plain", 300, b2_at_training_shape)
+        train_phase("train_pallas_chol", "pallas", "chol", 240, b1_at_training_shape)
+        train_phase("train_xla", "xla", "plain", 300)
+
+        # The JAX package's first step (JAX_TRAIN_STEP0): B2's forward and
+        # backward steps within max(3, 5 %) of JAX's on the same batch and probes.
+        with Phase("check_train_jax", 30):
+            require(JAX_TRAIN_STEP0 is not None, "no JAX reference for the first training step")
+            require(probes_sha256 == JAX_TRAIN_STEP0["probes_sha256"],
+                    "the first step's probes are not those JAX's values were taken with")
+            step0 = trained["train_pallas_resident"]["step0"]
+            for (got, _), ref, label in zip(step0, JAX_TRAIN_STEP0["cg_steps"],
+                                            ("forward", "backward")):
+                require(abs(got - ref) <= max(3, 0.05 * ref),
+                        f"train_pallas_resident: first-step {label} steps {got} vs JAX {ref}")
+            port = trained["train_pallas_resident"]["record"]["step0"]
+            emit({"phase": "check_train_jax", "jax_cpu_fp32": JAX_TRAIN_STEP0,
+                  "port_b2": {k: port[k] for k in ("loss", "cg_steps", "converged",
+                                                   *(f"|d {n}|" for n in TRAINABLE))},
+                  "tolerance": "B2's first-step forward and backward steps within max(3, 5 %) "
+                               "of JAX's"})
+        e2e_phases({"device": device, "card_line": card_line, "params": params,
+                    "train_model": train_model, "data": (xt, yt),
+                    "test_data": (x_test, y_test), "selection_path": selection_path,
+                    "kernels": kernels})
+
+        # B3 is off the dense training path (the matrix-free model trains in its
+        # own phases): its launches read in the three dense windows, all steps.
+        b3_train = {"train_launches": sum(t["launches"]["gram_matvec"] + t["launches"]["kuu_matvec"]
+                                          for t in trained.values()),
+                    "train_steps": sum(t["steps"] for t in trained.values())}
+        del trained, batches, xt, yt
+
+    if run("serving") or run("implicit_training"):
+        # -- setup_implicit: the matrix-free workload ------------------------------
+        with Phase("setup_implicit", 120) as ph:
+            meta = {"n": 435_000, "dim": 3, "seed": 0, "res": 0.15}
+            with np.load(implicit_selection_path) as sel:
+                require(all(float(sel[k]) == v for k, v in meta.items()),
+                        f"implicit selection metadata differs from {meta}")
+                iv, u, counts = sel["iv"], sel["u"], sel["counts"]
+            require(iv.shape == (IMPLICIT_M, 3), f"implicit inducing set shape {iv.shape}")
+
+            def make_implicit(use_pallas, threshold=IMPLICIT_THRESHOLD, max_cg=IMPLICIT_MAX_CG):
+                return ImplicitCGGP(kernel=Matern32(), num_data=n_train, block=IMPLICIT_BLOCK,
+                                    precondition="pivchol", precond_rank=128,
+                                    relative_threshold=True, error_threshold=threshold,
+                                    max_cg_iterations=max_cg, num_probes=TRAIN_PROBES,
+                                    use_pallas=use_pallas)
+
+            iparams = make_implicit(True).init_params(iv, pseudo_u=u, cluster_counts=counts,
+                                                      dtype=torch.float32, device=device)
+            imask = iparams["inducing_mask"][:, 0]
+            num_pads = int((imask == 0).sum())
+            m_pad = iparams["inducing_points"].shape[0]
+            require(m_pad == IMPLICIT_M_PAD and num_pads == IMPLICIT_M_PAD - IMPLICIT_M,
+                    f"padded M {m_pad} with {num_pads} pads")
+            ixq = xq[:IMPLICIT_BATCHES * R_BATCH]
+            ikp = iparams["kernel"]
+            iz_scaled = (iparams["inducing_points"] / Matern32().lengthscales(ikp)).contiguous()
+            ilam = make_implicit(True).diag_variance(iparams)[:, 0].contiguous()
+            ivar = Matern32().variance(ikp).reshape(1).contiguous()
+            emit({"phase": "setup_implicit", "m": IMPLICIT_M, "m_pad": m_pad, "pads": num_pads,
+                  "block": IMPLICIT_BLOCK, "query_points": int(ixq.shape[0]),
+                  "wall_s": ph.elapsed()})
+
+    if run("serving"):
+        # -- B3: gram_matvec / kuu_matvec ------------------------------------------
+        with Phase("B3", 240) as ph:
+            gen = torch.Generator(device=device).manual_seed(1)
+            cases = []
+
+            def b3_case(label, fn, plain, plain_abs, shape, kernel_name, nbytes, reps, loader,
+                        exact=None, emulated=None, gate_fp64=False):
+                got = fn()
+                want = plain()
+                ph.wait()
+                require(bool(torch.isfinite(got).all()), f"B3 {label}: non-finite output")
+                err = float((got - want).abs().max())
+                # Both are fp32-accurate sums of M nonnegative kernel values times
+                # B in other orders: the gap is a few ulps of sum |B| K
+                # (random-walk estimate sqrt(M) eps = 1.2e-5 of it at M = 10240).
+                scale = float(plain_abs().max())
+                tol = 5e-5 * scale
+                require(err <= tol, f"B3 {label}: max abs err {err} > {tol}")
+                accuracy = {}
+                if exact is not None:
+                    reference = exact()
+                    err_fp64 = float((got.double() - reference).abs().max())
+                    plain_err_fp64 = float((want.double() - reference).abs().max())
+                    del reference
+                    accuracy = {"max_abs_err_vs_fp64": err_fp64,
+                                "plain_max_abs_err_vs_fp64": plain_err_fp64}
+                    if gate_fp64:
+                        require(err_fp64 <= 2.0 * plain_err_fp64,
+                                f"B3 {label}: {err_fp64} from fp64, plain fp32 {plain_err_fp64}")
+                if emulated is not None:
+                    rows_emulated, emulated_out = emulated()
+                    accuracy["max_abs_err_vs_3xtf32_emulation"] = float(
+                        (got[:rows_emulated] - emulated_out).abs().max())
+                times = timed_in_turns(ph, {"plain": plain, "kernel": fn},
+                                       ["plain", "kernel", "kernel", "plain"], reps=reps)
+                n, m, d, r = shape
+                graph = {"kernel": graph_ms(ph, fn)} if r == 1 else None
+                bound, bound_by, bound_what, parts = gram_bound(
+                    n, m, d, r, kernel_name, sm_clock_mhz * 1e6, nbytes)
+                case = {"case": label, "kernel": kernel_name, "n": n, "m": m, "d": d, "r": r,
+                        "b_loader": loader, "max_abs_err": err, "max_rel_err": err / scale,
+                        **accuracy,
+                        "tolerance": f"max_abs_err <= 5e-5 * max(|B| K) = {tol:.3g}"
+                                     + ("; vs fp64 <= 2x the plain version's" if gate_fp64 else ""),
+                        "kernel_ms": float(np.mean(times["kernel"])),
+                        "plain_ms": float(np.mean(times["plain"])), "turns_ms": times,
+                        "graph_ms": graph, "bound_ms": bound, "bound_by": bound_by,
+                        "bound_detail": bound_what, "bound_parts_ms": parts,
+                        "simt_bound_ms": max(parts["fp32 FMA"], parts["special functions"],
+                                             parts["bytes"]),
+                        "library_ms": None}
+                cases.append(case)
+                return case
+
+            m = IMPLICIT_M_PAD
+            z64 = iz_scaled.double()
+            b_loader = None
+            for rows in (1, R_BATCH):
+                # The path's operand: p * mask (pad columns zero), pads in place.
+                p = (torch.randn(rows, m, generator=gen, device=device) * imask).contiguous()
+                p_abs = p.abs()
+
+                def kuu_exact(p=p):
+                    # The same function in fp64 from the same fp32 inputs.
+                    k64 = kernel_value_from_r2("matern32", scaled_squared_distance(z64, z64),
+                                               ivar.double().reshape(()))
+                    return p.double() @ k64 + p.double() * ilam.double()
+
+                def kuu_emulated(p=p):
+                    return 256, kuu_matvec_3xtf32_emulated(iz_scaled, ilam, p[:256], ivar,
+                                                           "matern32")
+
+                b3_case(f"kuu_matvec R={rows}",
+                        lambda: kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
+                        lambda: kuu_matvec_plain(iz_scaled, ilam, p, ivar, "matern32"),
+                        lambda: kuu_matvec_plain(iz_scaled, ilam, p_abs, ivar, "matern32"),
+                        (m, m, 3, rows), "matern32", 4.0 * (m * 3 + m + 1 + 2 * rows * m),
+                        reps=3 if rows > 1 else 20, loader=b3_loader(p, rows, m, 1),
+                        exact=kuu_exact,
+                        emulated=kuu_emulated if rows > 8 else None, gate_fp64=rows > 8)
+                if rows > 8:
+                    # The same p one word into a buffer: its rows are no longer
+                    # 16-byte aligned, so the tiled launch copies its B tiles by
+                    # cp.async instead of TMA.  The arithmetic is the same, so the
+                    # output must be bitwise equal; the two loaders are timed in
+                    # turns.
+                    p_off = torch.empty(rows * m + 1, device=device)[1:].view(rows, m)
+                    p_off.copy_(p)
+                    same = torch.equal(kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
+                                       kuu_matvec(iz_scaled, ilam, p_off, ivar, "matern32"))
+                    require(same, f"B3 kuu_matvec R={rows}: an offset view of p changes the output")
+                    times = timed_in_turns(
+                        ph, {"aligned": lambda: kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
+                             "offset": lambda: kuu_matvec(iz_scaled, ilam, p_off, ivar,
+                                                          "matern32")},
+                        ["aligned", "offset", "offset", "aligned"], reps=3)
+                    b_loader = {"rows": rows, "aligned_ms": float(np.mean(times["aligned"])),
+                                "offset_ms": float(np.mean(times["offset"])), "turns_ms": times,
+                                "bitwise_equal": same, "aligned": b3_loader(p, rows, m, 1),
+                                "offset": b3_loader(p_off, rows, m, 1)}
+                    del p_off
+            # The matrix-free training shape: a step's fused block of 2059 rows.
+            p = (torch.randn(IMPLICIT_TRAIN_ROWS, m, generator=gen, device=device)
+                 * imask).contiguous()
+            p_abs = p.abs()
+            train_case = b3_case(
+                f"kuu_matvec R={IMPLICIT_TRAIN_ROWS} (training)",
+                lambda: kuu_matvec(iz_scaled, ilam, p, ivar, "matern32"),
+                lambda: kuu_matvec_plain(iz_scaled, ilam, p, ivar, "matern32"),
+                lambda: kuu_matvec_plain(iz_scaled, ilam, p_abs, ivar, "matern32"),
+                (m, m, 3, IMPLICIT_TRAIN_ROWS), "matern32",
+                4.0 * (m * 3 + m + 1 + 2 * IMPLICIT_TRAIN_ROWS * m), reps=5,
+                loader=b3_loader(p, IMPLICIT_TRAIN_ROWS, m, 1),
+                exact=lambda p=p: kuu_exact(p), gate_fp64=True)
+            del p, p_abs
+            xg = xq[:R_BATCH].contiguous()
+            v = (torch.randn(m, 1, generator=gen, device=device) * imask[:, None]).contiguous()
+            v_abs = v.abs()
+            b3_case("gram_matvec R=1", lambda: gram_matvec(xg, iz_scaled, v, ivar, "matern32"),
+                    lambda: gram_matvec_plain(xg, iz_scaled, v, ivar, "matern32"),
+                    lambda: gram_matvec_plain(xg, iz_scaled, v_abs, ivar, "matern32"),
+                    (R_BATCH, m, 3, 1), "matern32", 4.0 * ((R_BATCH + m) * 3 + m + 1 + R_BATCH),
+                    reps=20, loader=b3_loader(v, 1, 1, 1))
+            # Ragged cases of every family: the small launch (R = 5) and the
+            # tiled one reading B transposed (R = 37 at D = 5, R = 130 at D = 32).
+            for n_r, m_r, d_r, r_r in ((1000, 777, 3, 5), (1000, 777, 5, 37), (333, 1001, 32, 130)):
+                for kernel_name in ("se", "matern12", "matern32", "matern52"):
+                    xr = (torch.rand(n_r, d_r, generator=gen, device=device) * 4 - 2).contiguous()
+                    zr = (torch.rand(m_r, d_r, generator=gen, device=device) * 4 - 2).contiguous()
+                    vr = torch.randn(m_r, r_r, generator=gen, device=device)
+                    vr_abs = vr.abs()
+                    b3_case(f"gram_matvec ragged {kernel_name} R={r_r}",
+                            lambda: gram_matvec(xr, zr, vr, 1.3, kernel_name),
+                            lambda: gram_matvec_plain(xr, zr, vr, 1.3, kernel_name),
+                            lambda: gram_matvec_plain(xr, zr, vr_abs, 1.3, kernel_name),
+                            (n_r, m_r, d_r, r_r), kernel_name,
+                            4.0 * ((n_r + m_r) * d_r + m_r * r_r + 1 + n_r * r_r), reps=10,
+                            loader=b3_loader(vr, r_r, 1, r_r))
+            emit({"phase": "B3", "cases": cases, "b_loader": b_loader, "library_ms": None,
+                  "library_note": "no single PyTorch call builds and contracts the Gram matrix",
+                  "peak": "fp32 FMA 67 TFLOP/s, TF32 495 TFLOP/s dense, 16 special-function "
+                          "results/clock/SM x 132 SMs at the max SM clock, HBM 3.35 TB/s "
+                          "(H100 SXM)",
+                  "nvidia_smi": card_line, "wall_s": ph.elapsed()})
+            big = cases[1]
+            kernels.setdefault("gram_matvec", {}).update({
+                "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": big["kernel_ms"],
+                "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+                "bound_by": big["bound_by"], "library_ms": None,
+                "implicit_train_ms": train_case["kernel_ms"],
+                "implicit_train_plain_ms": train_case["plain_ms"],
+                "implicit_train_bound_ms": train_case["bound_ms"]})
+
+        # -- reference_implicit: the fp64 Cholesky posterior ----------------------
+        with Phase("reference_implicit", 180) as ph:
+            oracle = ClusterGP(kernel=Matern32(), num_data=n_train)
+            oparams = oracle.init_params(iv, pseudo_u=u, cluster_counts=counts,
+                                         dtype=torch.float64, device=device)
+            ref_mean, ref_var = oracle.predict_f(oparams, ixq.double())
             ph.wait()
-            t2 = time.monotonic()
-            launches = {"kuu_matvec": kuu_matvec.launches, "gram_matvec": gram_matvec.launches}
-            steps = [int(st.steps) for st in solves]
-            converged = [bool(st.converged) for st in solves]
-            require(len(steps) == 1 + xs.shape[0] // R_BATCH, f"{name}: {len(steps)} solves")
-            want = {"kuu_matvec": sum(k + 1 for k in steps) if use_pallas else 0,
-                    "gram_matvec": 0}
-            require(launches == want, f"{name}: launches {launches}, want {want} "
-                                      f"(steps + 1 over the solves {steps})")
-            require(all(converged), f"{name}: a solve did not converge: steps {steps}")
-            require(mean.shape == (xs.shape[0], 1) and var.shape == (xs.shape[0], 1),
-                    f"{name}: output shapes {tuple(mean.shape)} {tuple(var.shape)}")
-            require(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
-                    f"{name}: non-finite serving output")
-            require(bool((var >= 0).all()), f"{name}: negative predictive variance")
-            rows = xs.shape[0]
-            gaps = {"mean": float((mean.double() - ref_mean[:rows]).abs().max()),
-                    "var": float((var.double() - ref_var[:rows]).abs().max())}
-            # Over the points the JAX package's own gap was measured on.
-            gaps_512 = {"mean": float((mean[:512].double() - ref_mean[:512]).abs().max()),
-                        "var": float((var[:512].double() - ref_var[:512]).abs().max())}
-            require(all(gaps[k] <= atol[k] for k in gaps),
-                    f"{name}: gaps to the fp64 Cholesky posterior {gaps} beyond {atol}")
-            serve_s = t2 - t1
-            record = {"phase": name, "use_pallas": use_pallas,
-                      "relative_threshold": threshold, "launches": launches,
-                      "solves": len(steps), "points": rows, "batch_size": R_BATCH,
-                      "posterior_build_s": t1 - t0, "serve_s": serve_s,
-                      "points_per_s": rows / serve_s, "cg_steps_nu": steps[0],
-                      "cg_steps_per_batch": steps[1:],
-                      "ms_per_cg_step_serving": serve_s * 1e3 / sum(steps[1:]),
-                      "mean_vs_fp64_chol": gaps["mean"], "var_vs_fp64_chol": gaps["var"],
-                      "mean_vs_fp64_chol_first_512": gaps_512["mean"],
-                      "var_vs_fp64_chol_first_512": gaps_512["var"],
-                      **({"jax_cpu_vs_fp64_chol_first_512": JAX_IMPLICIT_GAP_512,
-                          "mean_gap_over_jax_first_512":
-                              gaps_512["mean"] / JAX_IMPLICIT_GAP_512["mean"]}
-                         if threshold == IMPLICIT_THRESHOLD else {}),
-                      "tolerance": atol, "var_min": float(var.min()),
-                      "nvidia_smi": card_line, "wall_s": ph.elapsed()}
-            emit(record)
-            return record
+            require(bool(torch.isfinite(ref_mean).all() and torch.isfinite(ref_var).all()),
+                    "the fp64 Cholesky posterior is not finite")
+            emit({"phase": "reference_implicit", "points": int(ixq.shape[0]),
+                  "mean_abs_max": float(ref_mean.abs().max()), "var_min": float(ref_var.min()),
+                  "var_max": float(ref_var.max()), "wall_s": ph.elapsed()})
 
-    # Not warmed up: B3 and the blocked route's matmuls ran in earlier phases.
-    implicit = {}
-    for route, use_pallas in (("pallas", True), ("xla", False)):
-        implicit[route] = serve_implicit(f"serve_implicit_{route}", use_pallas,
-                                         IMPLICIT_THRESHOLD, ixq, IMPLICIT_ATOL, 150)
-    kernels["gram_matvec"]["launches"] = sum(implicit["pallas"]["launches"].values())
-    kernels["gram_matvec"].update(b3_train)
-    tight = {route: serve_implicit(f"check_implicit_tight_{route}", use_pallas,
-                                   IMPLICIT_TIGHT_THRESHOLD, ixq[:R_BATCH], IMPLICIT_TIGHT_ATOL,
-                                   120)
-             for route, use_pallas in (("pallas", True), ("xla", False))}
-    # Both routes solve the same systems: the kernel route's step counts stay
-    # within 5 % (or 3 steps) of the plain route's.
-    for runs in (implicit, tight):
-        for key in ("cg_steps_nu", "cg_steps_per_batch"):
-            a = np.atleast_1d(runs["pallas"][key])
-            b = np.atleast_1d(runs["xla"][key])
-            require(bool(np.all(np.abs(a - b) <= np.maximum(3, 0.05 * b))),
-                    f"kernel route steps {a.tolist()} vs plain {b.tolist()} ({key})")
+        def serve_implicit(name, use_pallas, threshold, xs, atol, budget_s):
+            with Phase(name, budget_s) as ph:
+                model = make_implicit(use_pallas, threshold)
+                solves = record_solves(model)
+                gram_matvec.launches = 0
+                kuu_matvec.launches = 0
+                t0 = time.monotonic()
+                post = model.posterior(iparams, solver="cg")
+                ph.wait()
+                t1 = time.monotonic()
+                mean, var = predict_in_batches(model, iparams, xs, batch_size=R_BATCH,
+                                               posterior_solver="cg", posterior=post)
+                ph.wait()
+                t2 = time.monotonic()
+                launches = {"kuu_matvec": kuu_matvec.launches, "gram_matvec": gram_matvec.launches}
+                steps = [int(st.steps) for st in solves]
+                converged = [bool(st.converged) for st in solves]
+                require(len(steps) == 1 + xs.shape[0] // R_BATCH, f"{name}: {len(steps)} solves")
+                want = {"kuu_matvec": sum(k + 1 for k in steps) if use_pallas else 0,
+                        "gram_matvec": 0}
+                require(launches == want, f"{name}: launches {launches}, want {want} "
+                                          f"(steps + 1 over the solves {steps})")
+                require(all(converged), f"{name}: a solve did not converge: steps {steps}")
+                require(mean.shape == (xs.shape[0], 1) and var.shape == (xs.shape[0], 1),
+                        f"{name}: output shapes {tuple(mean.shape)} {tuple(var.shape)}")
+                require(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+                        f"{name}: non-finite serving output")
+                require(bool((var >= 0).all()), f"{name}: negative predictive variance")
+                rows = xs.shape[0]
+                gaps = {"mean": float((mean.double() - ref_mean[:rows]).abs().max()),
+                        "var": float((var.double() - ref_var[:rows]).abs().max())}
+                # Over the points the JAX package's own gap was measured on.
+                gaps_512 = {"mean": float((mean[:512].double() - ref_mean[:512]).abs().max()),
+                            "var": float((var[:512].double() - ref_var[:512]).abs().max())}
+                require(all(gaps[k] <= atol[k] for k in gaps),
+                        f"{name}: gaps to the fp64 Cholesky posterior {gaps} beyond {atol}")
+                serve_s = t2 - t1
+                record = {"phase": name, "use_pallas": use_pallas,
+                          "relative_threshold": threshold, "launches": launches,
+                          "solves": len(steps), "points": rows, "batch_size": R_BATCH,
+                          "posterior_build_s": t1 - t0, "serve_s": serve_s,
+                          "points_per_s": rows / serve_s, "cg_steps_nu": steps[0],
+                          "cg_steps_per_batch": steps[1:],
+                          "ms_per_cg_step_serving": serve_s * 1e3 / sum(steps[1:]),
+                          "mean_vs_fp64_chol": gaps["mean"], "var_vs_fp64_chol": gaps["var"],
+                          "mean_vs_fp64_chol_first_512": gaps_512["mean"],
+                          "var_vs_fp64_chol_first_512": gaps_512["var"],
+                          **({"jax_cpu_vs_fp64_chol_first_512": JAX_IMPLICIT_GAP_512,
+                              "mean_gap_over_jax_first_512":
+                                  gaps_512["mean"] / JAX_IMPLICIT_GAP_512["mean"]}
+                             if threshold == IMPLICIT_THRESHOLD else {}),
+                          "tolerance": atol, "var_min": float(var.min()),
+                          "nvidia_smi": card_line, "wall_s": ph.elapsed()}
+                emit(record)
+                return record
 
-    # -- LOVE serving of the matrix-free model, through B3 and the blocked route
-    kernels["gram_matvec"]["love_implicit_launches"] = serve_love_implicit(
-        {"card_line": card_line, "params": iparams, "xs": ixq, "make_implicit": make_implicit,
-         "ref_var": ref_var})
+        # Not warmed up: B3 and the blocked route's matmuls ran in earlier phases.
+        implicit = {}
+        for route, use_pallas in (("pallas", True), ("xla", False)):
+            implicit[route] = serve_implicit(f"serve_implicit_{route}", use_pallas,
+                                             IMPLICIT_THRESHOLD, ixq, IMPLICIT_ATOL, 150)
+        kernels["gram_matvec"]["launches"] = sum(implicit["pallas"]["launches"].values())
+        kernels["gram_matvec"].update(b3_train)
+        tight = {route: serve_implicit(f"check_implicit_tight_{route}", use_pallas,
+                                       IMPLICIT_TIGHT_THRESHOLD, ixq[:R_BATCH], IMPLICIT_TIGHT_ATOL,
+                                       120)
+                 for route, use_pallas in (("pallas", True), ("xla", False))}
+        # Both routes solve the same systems: the kernel route's step counts stay
+        # within 5 % (or 3 steps) of the plain route's.
+        for runs in (implicit, tight):
+            for key in ("cg_steps_nu", "cg_steps_per_batch"):
+                a = np.atleast_1d(runs["pallas"][key])
+                b = np.atleast_1d(runs["xla"][key])
+                require(bool(np.all(np.abs(a - b) <= np.maximum(3, 0.05 * b))),
+                        f"kernel route steps {a.tolist()} vs plain {b.tolist()} ({key})")
 
-    # -- matrix-free training through B3 and the blocked route ----------------
-    implicit_training_phases({"device": device, "card_line": card_line,
-                              "make_implicit": make_implicit, "params": iparams,
-                              "data": (x_train, y_train, x_test, y_test),
-                              "gram_record": kernels["gram_matvec"]})
+        # -- LOVE serving of the matrix-free model, through B3 and the blocked route
+        kernels["gram_matvec"]["love_implicit_launches"] = serve_love_implicit(
+            {"card_line": card_line, "params": iparams, "xs": ixq, "make_implicit": make_implicit,
+             "ref_var": ref_var})
 
-    # -- the exact GP through B3 at N = 131,072 ---------------------------------
-    itergpr_phases({"device": device, "card_line": card_line,
-                    "sm_clock_hz": sm_clock_mhz * 1e6, "gram_record": kernels["gram_matvec"]})
+    if run("implicit_training"):
+        # -- matrix-free training through B3 and the blocked route ----------------
+        implicit_training_phases({"device": device, "card_line": card_line,
+                                  "make_implicit": make_implicit, "params": iparams,
+                                  "data": (x_train, y_train, x_test, y_test),
+                                  "gram_record": kernels["gram_matvec"]})
 
-    # -- the rest of the CG solver family on bench.py's dense system -----------
-    kernels["pallas_matvec"].update(solver_family_phases(
-        {"device": device, "card_line": card_line, "training_system": kmm_lambda,
-         "training_rhs": params["pseudo_u"]}))
+    if run("itergpr"):
+        # -- the exact GP through B3 at N = 131,072 ---------------------------------
+        itergpr_phases({"device": device, "card_line": card_line,
+                        "sm_clock_hz": sm_clock_mhz * 1e6, "gram_record": kernels["gram_matvec"]})
 
-    # -- the experiment CLI: the paper's pipeline, B3 under compute-metrics ---
-    cli_phases({"card_line": card_line, "gram_record": kernels["gram_matvec"]})
+    if run("solver_family"):
+        # -- the rest of the CG solver family on bench.py's dense system -----------
+        kernels["pallas_matvec"].update(solver_family_phases(
+            {"device": device, "card_line": card_line, "training_system": kmm_lambda,
+             "training_rhs": params["pseudo_u"]}))
 
-    # -- the device delta-net, fused re-clustering and streaming ingest -------
-    covernet_streaming_phases({"device": device, "card_line": card_line, "kernels": kernels,
-                               "data": (x_train, y_train)})
+    if run("cli"):
+        # -- the experiment CLI: the paper's pipeline, B3 under compute-metrics ---
+        cli_phases({"card_line": card_line, "gram_record": kernels["gram_matvec"]})
+
+    if run("covernet_streaming"):
+        # -- the device delta-net, fused re-clustering and streaming ingest -------
+        covernet_streaming_phases({"device": device, "card_line": card_line, "kernels": kernels,
+                                   "data": (x_train, y_train)})
+
+    if run("gang"):
+        # -- gang training: G = 8 replicas, batched B1, B2 member by member ------
+        gang_phases({"device": device, "card_line": card_line, "kernels": kernels,
+                     "data": (x_train, y_train), "selection": selection_989})
+
+    if run("parallel"):
+        # -- the parallel package over a one-rank NCCL world --------------------
+        parallel_phases({"device": device, "card_line": card_line, "kernels": kernels,
+                         "data": (x_train, y_train), "params": params, "xq": xq,
+                         "make_model": make_model,
+                         "implicit_selection_path": implicit_selection_path})
 
     sources = {"pallas_matvec": ("cggp_tpu_torch/csrc/pallas_matvec.cu",
                                  "cggp_tpu/ops/pallas_matvec.py:65"),
@@ -5383,17 +6106,29 @@ def main() -> int:
                                    "cggp_tpu/ops/pallas_cg.py:107"),
                "gram_matvec": ("cggp_tpu_torch/csrc/pallas_gram.cu",
                                "cggp_tpu/ops/pallas_gram.py:118")}
+
+    def launches_of(record):
+        """The main path's launches, or (where the serving group did not
+        run) every launch count the groups that ran recorded."""
+        if "launches" in record:
+            return record["launches"]
+        return sum(v for k, v in record.items()
+                   if k.endswith("launches") and isinstance(v, int))
+
+    # The kernels the groups that ran launched, each with every key (None
+    # where no group that ran measured it).
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
-         "launches": kernels[name]["launches"], "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
-         "bound_ms": kernels[name]["bound_ms"], "bound_by": kernels[name]["bound_by"],
-         "library_ms": kernels[name]["library_ms"],
+         "launches": launches_of(kernels[name]), "max_abs_err": kernels[name].get("max_abs_err"),
+         "ms": kernels[name].get("ms"), "plain_ms": kernels[name].get("plain_ms"),
+         "bound_ms": kernels[name].get("bound_ms"), "bound_by": kernels[name].get("bound_by"),
+         "library_ms": kernels[name].get("library_ms"),
          **{k: v for k, v in kernels[name].items()
             if k.startswith(("train_", "multi_", "loop_", "implicit_", "itergpr_", "love_",
                              "solver_family_", "pathwise_", "lbfgs_", "cli_", "recluster_",
-                             "stream_"))}}
-        for name in ("pallas_matvec", "pallas_cg_solve", "gram_matvec")]})
+                             "stream_", "gang_", "hybrid_", "serve_mesh_"))}}
+        for name in ("pallas_matvec", "pallas_cg_solve", "gram_matvec")
+        if name in kernels and launches_of(kernels[name])]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -5401,4 +6136,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -203,8 +203,21 @@ def test_unported_switches_raise(call):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-8)
         return
-    with pytest.raises(NotImplementedError, match="item 12"):
-        predict_in_batches(tmodel, tparams, x, mesh=object(), posterior_solver="cg")
+    # mesh serving is ported now (it raised naming item 12 here before): at
+    # one rank it serves the single-device bits, and JAX's one-device mesh
+    # serving at CG64's 1e-8.
+    from cggp_tpu.parallel import make_mesh as jax_make_mesh
+    from cggp_tpu_torch.parallel import make_mesh
+
+    jmodel, jparams, tmodel, tparams, _ = _models("xla", CG64, jnp.float64)
+    got = predict_in_batches(tmodel, tparams, x, mesh=make_mesh(1, device="cpu"),
+                             posterior_solver="cg")
+    single = predict_in_batches(tmodel, tparams, x, posterior_solver="cg")
+    want = jax_predict_in_batches(jmodel, jparams, jnp.asarray(xq), posterior_solver="cg",
+                                  mesh=jax_make_mesh(1))
+    for g, s1, w in zip(got, single, want):
+        np.testing.assert_array_equal(g.numpy(), s1.numpy())
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-8)
     with pytest.raises(ValueError):
         tmodel.posterior(tparams, solver="cholesky")
 

@@ -6,8 +6,10 @@
   ``multiple``) and positional arguments; the port's one extra option is
   the root's ``--device``.
 * Refusals and exit codes: a usage error exits 2 in both packages;
-  ``--num-devices`` raises ``NotImplementedError`` naming ROADMAP item 12,
-  while the ``covernet`` group, ``--recluster fused`` and
+  ``--num-devices 1`` trains the sharded model and serves data-parallel at
+  one rank (the JAX package's info, shapes and, for ``predict``, the
+  single-device dumps), ``--num-devices 2`` above the one-rank world raises
+  ``make_mesh``'s ``ValueError``, while the ``covernet`` group, ``--recluster fused`` and
   ``condition-wasserstein --selection covernet`` write what JAX's CLI
   writes (the selection and the inducing state to 1e-12); without
   ``--device cpu`` and without a card the port fails with
@@ -187,7 +189,7 @@ NOT_PORTED = [
       "covernet", "--recluster", "fused", "--steps-per-call", "2", "--no-tensorboard"],
      "item 10"),
     (["train", "-d", "synthetic:n=120:dim=2", "train-cggp-adam", "-n", "1", "-b", "16",
-      "--num-devices", "2"], "item 12"),
+      "--num-devices", "1"], "item 12"),
     (["condition-wasserstein", "-d", "1", "-r", "1.0", "-r", "0.5", "-n", "20", "--selection",
       "covernet"], "item 10"),
 ]
@@ -213,16 +215,17 @@ def _patch_condition_wasserstein_draws(monkeypatch, num_data, dim, seed=0):
 @pytest.mark.parametrize("args,item", NOT_PORTED, ids=["uci_covernet", "train_fused",
                                                        "train_num_devices", "cw_covernet"])
 def test_unported_paths_raise_naming_their_roadmap_item(args, item, tmp_path, monkeypatch):
-    # --num-devices still raises naming item 12.  The item-10 paths (the
-    # covernet group, --recluster fused, --selection covernet) raised here
-    # before and are ported now: each writes what JAX's CLI writes.
+    # Each path raised here naming its ROADMAP item before and is ported
+    # now: the item-10 paths (the covernet group, --recluster fused,
+    # --selection covernet) write what JAX's CLI writes; --num-devices
+    # (item 12) trains ShardedCGGP at one rank (JAX's info and parameter
+    # shapes) and refuses a mesh above the one-rank world.
     monkeypatch.chdir(tmp_path)
     if "cfg" in args:
         run_port(["gpr", "-d", "synthetic:n=120:dim=2", "-n", 1, "-l", tmp_path / "cfg"])
     if item == "item 12":
-        with pytest.raises(NotImplementedError, match=item):
-            port_main(["--device", "cpu", *args])
-        return
+        with pytest.raises(ValueError, match="requested 2 devices"):
+            port_main(["--device", "cpu", *args[:-1], "2"])
     if args[0] == "condition-wasserstein":
         _patch_condition_wasserstein_draws(monkeypatch, 20, 1)
     for run, name in ((run_jax, "jax"), (run_port, "port")):
@@ -243,6 +246,13 @@ def test_unported_paths_raise_naming_their_roadmap_item(args, item, tmp_path, mo
                 assert abs(got[key] - want[key]) <= 1e-2 * abs(want[key]), key
             else:
                 assert got[key] == want[key], key
+    elif args[0] == "train" and item == "item 12":
+        info = {d: {k: v for k, v in json.loads(Path(tmp_path, d, "info.json").read_text())
+                    .items() if k != "logdir"} for d in ("port", "jax")}
+        assert info["port"] == info["jax"] and info["port"]["num_devices"] == 1
+        got, want = (dict(np.load(Path(tmp_path, d, "params.npz"))) for d in ("port", "jax"))
+        assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
+        assert all(np.isfinite(v).all() for v in got.values())
     elif args[0] == "train":
         info = {d: {k: v for k, v in json.loads(Path(tmp_path, d, "info.json").read_text())
                     .items() if k != "logdir"} for d in ("port", "jax")}
@@ -263,11 +273,20 @@ def test_unported_paths_raise_naming_their_roadmap_item(args, item, tmp_path, mo
 
 
 def test_predict_num_devices_raises_naming_item_12(tmp_path, monkeypatch):
+    """``predict --num-devices 1`` (item 12, ported) serves data-parallel at
+    one rank: the dumps equal the single-device run's bitwise; 2 ranks
+    above the one-rank world raise ``make_mesh``'s ValueError."""
     monkeypatch.chdir(tmp_path)
     run_port(["gpr", "-d", "synthetic:n=120:dim=2", "-n", 1, "-l", tmp_path / "cfg"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_main(["--device", "cpu", "predict", "-c", str(tmp_path / "cfg"), "-mc", "gpr",
-                   "-l", str(tmp_path / "p"), "--num-devices", "2"])
+    base = ["--device", "cpu", "predict", "-c", str(tmp_path / "cfg"), "-mc", "gpr", "-l"]
+    port_main([*base, str(tmp_path / "p1")])
+    port_main([*base, str(tmp_path / "p2"), "--num-devices", "1"])
+    for name in ("train_mean.npy", "train_variances.npy", "test_mean.npy",
+                 "test_variances.npy"):
+        np.testing.assert_array_equal(np.load(tmp_path / "p2" / name),
+                                      np.load(tmp_path / "p1" / name), err_msg=name)
+    with pytest.raises(ValueError, match="requested 2 devices"):
+        port_main([*base, str(tmp_path / "p3"), "--num-devices", "2"])
 
 
 def test_without_a_card_the_default_device_fails_and_nothing_runs(tmp_path, monkeypatch,

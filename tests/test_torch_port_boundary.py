@@ -57,8 +57,18 @@ def test_port_package_and_smoke_script_exist():
                    "training/batching", "training/monitor", "ops/rff", "ops/cg_implicit",
                    "ops/logdet", "models/rowcg", "models/implicit", "utils/store",
                    "models/gpr", "models/itergpr", "models/sgpr", "models/lpsvgp",
-                   "models/pathwise", "data", "config"):
+                   "models/pathwise", "data", "config", "training/gang", "parallel/__init__",
+                   "parallel/mesh", "parallel/sharded_cg", "parallel/model", "parallel/itergpr",
+                   "parallel/data_parallel"):
         assert ROOT / "cggp_tpu_torch" / f"{module}.py" in PORT_SOURCES, module
+
+
+def test_multi_rank_test_helpers_import_neither_jax_nor_the_jax_package():
+    """The spawned ranks of the parallel and gang tests import
+    ``torch_dist_helpers`` by name: it must never pull JAX into them."""
+    path = ROOT / "tests" / "torch_dist_helpers.py"
+    roots = set(_imported_roots(path))
+    assert not roots & set(BANNED), f"{path.name} imports {sorted(roots & set(BANNED))}"
 
 
 NATIVE_SOURCES = sorted(p for ext in ("*.cu", "*.cuh", "*.cc")
@@ -81,7 +91,7 @@ def test_native_source_includes_nothing_of_jax_or_the_jax_package(path):
 @pytest.mark.parametrize("entry", ["resolve_device", "cggp_init_params", "likelihood",
                                    "params_from_numpy", "index_iterator", "covertree_update",
                                    "load_posterior", "itergpr_init_params", "sgpr_init_params",
-                                   "lpsvgp_init_params", "pathwise_init_params"])
+                                   "lpsvgp_init_params", "pathwise_init_params", "make_mesh"])
 def test_entry_points_without_a_card_raise_instead_of_using_the_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = CGGP(kernel=Matern32(), conjugate_gradient=ConjugateGradient(1e-6))
@@ -107,6 +117,10 @@ def test_entry_points_without_a_card_raise_instead_of_using_the_cpu(entry, monke
             LpSVGP(kernel=Matern32()).init_params(z)
         elif entry == "pathwise_init_params":
             PathwiseClusterGP(kernel=Matern32()).init_params(z)
+        elif entry == "make_mesh":
+            from cggp_tpu_torch.parallel import make_mesh
+
+            make_mesh(1)  # no process group is started: NCCL needs the card
         else:
             params_from_numpy({"pseudo_u": z})
     # Asking for the CPU works.

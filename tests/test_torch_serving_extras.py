@@ -215,8 +215,9 @@ def test_scan_route_equals_the_loop_and_jax(solver, mean_only):
 
 def test_serving_switch_errors_match_jax():
     """What both packages refuse: mean_only, scan=True and a prebuilt cache
-    without the cache path (ValueError); mesh serving stays unported and
-    names its queue item."""
+    without the cache path (ValueError); mesh serving without the cache path
+    (ValueError, both packages; mesh serving is ported now and raised
+    naming its queue item here before)."""
     jmodel, jparams, tmodel, tparams, xq = _cggp()
     post = tmodel.posterior(tparams, solver="chol")
     for kw in ({"mean_only": True}, {"scan": True}, {"posterior": post}):
@@ -227,7 +228,12 @@ def test_serving_switch_errors_match_jax():
         with pytest.raises(ValueError):
             joptimize.predict_in_batches(jmodel, jparams, jnp.asarray(xq), use_posterior=False,
                                          **jkw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        toptimize.predict_in_batches(tmodel, tparams, xq, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        toptimize.posterior_predict_scan(tmodel, post, torch.as_tensor(xq), mesh=object())
+    from cggp_tpu.parallel import make_mesh as jax_make_mesh
+    from cggp_tpu_torch.parallel.mesh import Mesh
+
+    one_rank = Mesh(size=1, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="posterior-cache path"):
+        toptimize.predict_in_batches(tmodel, tparams, xq, mesh=one_rank, use_posterior=False)
+    with pytest.raises(ValueError, match="posterior-cache path"):
+        joptimize.predict_in_batches(jmodel, jparams, jnp.asarray(xq), mesh=jax_make_mesh(1),
+                                     use_posterior=False)

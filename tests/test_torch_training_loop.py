@@ -390,7 +390,7 @@ def test_cg_stats_warning_and_no_false_positive_at_cap(probes):
 
 
 @pytest.mark.parametrize("kwargs, error, match", [
-    ({"mesh": object()}, NotImplementedError, "item 12"),
+    ({"mesh": "one_rank", "steps_per_call": 2}, ValueError, "steps_per_call=1 only"),
     ({"recluster_fn": lambda p: p}, ValueError, "requires steps_per_call > 1"),
     ({"precond_fn": lambda p: ()}, ValueError, "requires steps_per_call > 1"),
     ({"precond_resolver": lambda p: "chol"}, ValueError, "requires loss_fn_for_mode"),
@@ -401,13 +401,23 @@ def test_cg_stats_warning_and_no_false_positive_at_cap(probes):
 ], ids=["mesh", "recluster_fn", "precond_fn_k1", "resolver_no_factory", "resolver_frozen",
         "resolve_every"])
 def test_trainer_refusals(kwargs, error, match):
-    # JAX raises the same ValueErrors (same checks, same order); mesh is a
-    # ported refusal naming its ROADMAP item.  recluster_fn is ported (it
-    # raised naming item 10 here before): its checks are JAX's, and a K-step
-    # call runs it once, at the top, before the steps.
+    # JAX raises the same ValueErrors (same checks, same order).  mesh is
+    # ported (it raised naming item 12 here before): a mesh with K-step
+    # calls is JAX's refusal.  recluster_fn is ported (it raised naming item
+    # 10 here before): its checks are JAX's, and a K-step call runs it once,
+    # at the top, before the steps.
     _, tmodel = _model_pair()
     jmodel, _ = _model_pair()
     jparams, tparams = _params(jmodel)
+    if kwargs.get("mesh") == "one_rank":
+        from cggp_tpu.parallel import make_mesh as jax_make_mesh
+        from cggp_tpu_torch.parallel.mesh import Mesh
+
+        with pytest.raises(error, match=match):
+            joptimize.train_using_adam_and_update(
+                jparams, jmodel.training_loss, (jnp.asarray(X), jnp.asarray(Y)), 2, B, 0.01,
+                jax.random.PRNGKey(0), **dict(kwargs, mesh=jax_make_mesh(1)))
+        kwargs = dict(kwargs, mesh=Mesh(size=1, rank=0, device=torch.device("cpu")))
     with pytest.raises(error, match=match):
         train_using_adam_and_update(tparams, tmodel.training_loss,
                                     (torch.as_tensor(X), torch.as_tensor(Y)), 2, B, 0.01,
