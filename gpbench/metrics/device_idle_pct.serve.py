@@ -1,0 +1,7 @@
+"""Share of the traced serving stretch with nothing running on the card (%)."""
+
+from gpbench import readers
+
+
+def read(ctx):
+    return readers.idle_pct(ctx)
