@@ -18,6 +18,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from cggp_tpu_torch import tracing
 from cggp_tpu_torch.config import DeviceLike, default_float, resolve_device
 from cggp_tpu_torch.ops.bijectors import positive
 
@@ -142,7 +143,7 @@ def chol_or_cg_from_eigs(eig_min, eig_max, dtype: torch.dtype,
     non-finite estimate means poisoned inputs, not ill-conditioning: defer
     to ``"chol"`` so the serving-time non-finite-factor guard reports it."""
     info = torch.finfo(dtype)
-    kappa = float(eig_max) / max(float(eig_min), info.tiny)
+    kappa = tracing.host_read(eig_max, float) / max(tracing.host_read(eig_min, float), info.tiny)
     if not math.isfinite(kappa):
         return "chol"
     return "chol" if kappa * info.eps <= margin else "cg"

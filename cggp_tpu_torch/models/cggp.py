@@ -62,6 +62,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from cggp_tpu_torch import tracing
 from cggp_tpu_torch.models.base import batch_elbo, chol_or_cg_from_eigs, claim_row_shard
 from cggp_tpu_torch.models.clustergp import ClusterGP, _as_tensor
 from cggp_tpu_torch.ops.cg import (CGStats, CholPreconditioner, ConjugateGradient,
@@ -503,6 +504,7 @@ class CGGP(ClusterGP):
         eig_min, eig_max = self._eigs_of(kmm_lambda)
         return chol_or_cg_from_eigs(eig_min, eig_max, kmm_lambda.dtype)
 
+    @tracing.call("cggp.serve.cache")
     def posterior(self, params: Dict, key: Optional[torch.Generator] = None,
                   solver: str = "auto") -> "CGGPPosterior":
         """Everything that depends only on ``params``: ``nu = (Kmm +
@@ -618,7 +620,7 @@ class CGGP(ClusterGP):
             a21 = self.kernel.K(kp, z[m0:], z_old)
             a22 = add_diagonal(self.kernel.K(kp, z[m0:]), lam_new[m0:])
             chol = chol_extend(post.chol, a21, a22)
-            if not bool(torch.isfinite(chol).all()):
+            if not tracing.host_read(torch.isfinite(chol).all()):
                 warnings.warn("posterior_extend: bordered Cholesky produced a non-finite factor "
                               "(ill-conditioned border at this dtype); rebuilding the cache "
                               "from scratch instead.")

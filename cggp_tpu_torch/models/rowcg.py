@@ -47,6 +47,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from cggp_tpu_torch import tracing
 from cggp_tpu_torch.models.base import (batch_elbo, chol_or_cg_from_eigs, claim_row_shard,
                                         minibatch_scale)
 from cggp_tpu_torch.models.clustergp import ClusterGP, _as_tensor
@@ -384,6 +385,7 @@ class RowSolveCGGP(ClusterGP):
             return lanczos_quad_cache_rows(self._route_matvec(kp, z, lam, mask),
                                            love_seed_row(seed, mask[None, :]), rank)
 
+    @tracing.call("cggp.serve.cache")
     def posterior(self, params: Dict, solver: str = "auto") -> "RowCGGPPosterior":
         """The params-only serving state: the u-solve ``nu`` and the
         preconditioner; ``posterior_predict`` then solves only the Kmn rows.

@@ -86,6 +86,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from cggp_tpu_torch import tracing
 from cggp_tpu_torch.ops.linalg import compensated_dot, pivoted_cholesky
 from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve
 from cggp_tpu_torch.ops.pallas_matvec import pallas_matvec
@@ -241,7 +242,7 @@ class SpectralPreconditioner:
                  else torch.diagonal(small, dim1=-2, dim2=-1).sum(-1))
         ridge = (10.0 * eps * torch.clamp(trace / k, min=1.0))[..., None]
         eye = torch.eye(k, dtype=factor.dtype, device=factor.device)
-        s2, v = torch.linalg.eigh(small + ridge[..., None] * eye)
+        s2, v = tracing.host_read(small + ridge[..., None] * eye, torch.linalg.eigh)
         s2 = torch.clamp(s2 - ridge, min=0.0)
         q = torch.matmul(q, v)  # still orthonormal (V orthogonal)
         weights = 1.0 / (1.0 + s2)
@@ -446,7 +447,7 @@ def cg_loop(
         return _gang_loop(matvec, precond_apply, precond_state, b, state, over_threshold,
                           threshold, cap, max_steps_cycle, never_restart, mat_for_precond,
                           return_state, dot)
-    while state.i < cap and bool(over_threshold(state.r)):
+    while state.i < cap and tracing.host_read(over_threshold(state.r)):
         pa = matvec(state.p)
         denom = dot(state.p, pa)
         indefinite = denom < -_MIN_FLOAT
@@ -477,7 +478,7 @@ def _gang_loop(matvec, precond_apply, precond_state, b, state: CGState, over_thr
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     active = over_threshold(state.r)  # [G]
     steps = torch.zeros(active.shape, dtype=torch.int32, device=b.device)
-    while state.i < cap and bool(torch.any(active)):
+    while state.i < cap and tracing.host_read(torch.any(active)):
         pa = matvec(state.p)
         denom = dot(state.p, pa)
         indefinite = denom < -_MIN_FLOAT
@@ -533,7 +534,7 @@ def ir_cg_loop(
 
     def unconverged(r):
         flag = torch.any(0.5 * _row_sq(r) > threshold)
-        return bool(flag if agree is None else agree(flag))
+        return tracing.host_read(flag if agree is None else agree(flag))
 
     v = v0
     r = b - matvec_hi(v0)
@@ -547,7 +548,7 @@ def ir_cg_loop(
         v = v + d
         r = b - matvec_hi(v)  # the exact residual: refinement's anchor
         outer += 1
-        total_inner += int(inner.steps)
+        total_inner += tracing.host_read(inner.steps, int)
     error = 0.5 * _row_sq(r)
     converged = torch.logical_not(torch.any(error > threshold))
     steps = torch.tensor(total_inner, dtype=torch.int32, device=v0.device)
@@ -600,13 +601,14 @@ def mixed_cg_loop(
     z0, rz0 = precond_apply(precond_state, r0, mat_for_precond)
     state = CGState(0, v0, r0, z0, rz0)
     prev_err_sum = torch.sum(torch.square(r0))
-    while state.i < max_iterations and bool(torch.any(0.5 * _row_sq(state.r) > threshold)):
+    while state.i < max_iterations and tracing.host_read(
+            torch.any(0.5 * _row_sq(state.r) > threshold)):
         start_err_sum = torch.sum(torch.square(state.r))  # exact here: the drift anchor
         cycle_cap = min(state.i + refresh_every, max_iterations)
         while state.i < cycle_cap:
             go = torch.logical_and(torch.any(0.5 * _row_sq(state.r) > threshold),
                                    torch.sum(torch.square(state.r)) > drift_drop * start_err_sum)
-            if not bool(go):
+            if not tracing.host_read(go):
                 break
             state = step(state)
         r = b - matvec_hi(state.v)  # reliable update: the exact residual
@@ -673,6 +675,23 @@ def _cg_dense_impl(precond_apply: Callable, error_threshold: float, max_iteratio
                    max_steps_cycle: int, dot_name: str, matvec_impl: str, relative: bool,
                    matrix: torch.Tensor, rhs: torch.Tensor, v0: torch.Tensor,
                    precond_state) -> Tuple[torch.Tensor, CGStats]:
+    """One dense solve, forward or backward (:func:`_cg_dense_route`); a
+    ``cggp.cg.solve`` span while tracing is on."""
+    if not tracing.ON:
+        return _cg_dense_route(precond_apply, error_threshold, max_iterations, max_steps_cycle,
+                               dot_name, matvec_impl, relative, matrix, rhs, v0, precond_state)
+    with tracing.solve_span(rhs, matrix.shape[-1], matvec_impl) as span:
+        solution, stats = _cg_dense_route(precond_apply, error_threshold, max_iterations,
+                                          max_steps_cycle, dot_name, matvec_impl, relative,
+                                          matrix, rhs, v0, precond_state)
+        span.attrs["steps"] = stats.steps
+    return solution, stats
+
+
+def _cg_dense_route(precond_apply: Callable, error_threshold: float, max_iterations: int,
+                    max_steps_cycle: int, dot_name: str, matvec_impl: str, relative: bool,
+                    matrix: torch.Tensor, rhs: torch.Tensor, v0: torch.Tensor,
+                    precond_state) -> Tuple[torch.Tensor, CGStats]:
     _check_supported(matvec_impl, dot_name)
     if matrix.dim() == 3 and (matvec_impl not in _GANG_BATCHED
                               or not (precond_state == () or precond_apply in _GANG_APPLIES)):
@@ -909,14 +928,15 @@ class ConjugateGradient:
                                                              num_iters=min(64, n))
             offdiag = matrix.detach().clone()
             offdiag.diagonal().zero_()
-            offdiag_scale = float(torch.max(torch.abs(offdiag)))
+            offdiag_scale = tracing.host_read(torch.max(torch.abs(offdiag)), float)
             del offdiag
         perturbation = self._BF16_EPS * offdiag_scale
-        if perturbation >= float(eig_min):
+        eig_min = tracing.host_read(eig_min, float)
+        if perturbation >= eig_min:
             warnings.warn(
                 f"matvec_impl={self.matvec_impl!r} is outside its convergence envelope for "
                 f"this system (bf16 perturbation ~{perturbation:.2e} >= estimated lambda_min "
-                f"{float(eig_min):.2e}): the mixed-precision loop would stall below fp32 "
+                f"{eig_min:.2e}): the mixed-precision loop would stall below fp32 "
                 "accuracy. Falling back to 'xla_high' for this solve.", RuntimeWarning)
             resolved = "xla_high"
         else:
@@ -983,24 +1003,25 @@ class ConjugateGradient:
             err = b_norm2
             chunks = 0
             for _ in range(max_chunks):
-                if bool(torch.all(err <= target)):
+                if tracing.host_read(torch.all(err <= target)):
                     break
-                err_sum = float(torch.sum(err))
+                err_sum = tracing.host_read(torch.sum(err), float)
                 v_new, p_new, err_new = _dense_chunk(
                     precond.apply, chunk_iterations, float(self.error_threshold),
                     bool(self.relative_threshold), self.dot, matrix, rhs_rows, v, p,
                     precond.state)
                 chunks += 1
-                if p is not None and float(torch.sum(err_new)) > err_sum:
+                if p is not None and tracing.host_read(torch.sum(err_new), float) > err_sum:
                     p = None
                     continue
                 v, p, err = v_new, p_new, err_new
-            converged = bool(torch.all(err <= target))
+            converged = tracing.host_read(torch.all(err <= target))
             return v.T, CGStats(steps=torch.tensor(chunks * chunk_iterations),
                                 error=err[:, None], converged=torch.tensor(converged))
         solution = torch.zeros_like(rhs)
         chunk_solver = ConjugateGradient(
-            float(torch.min(target)), preconditioner=preconditioner or self.preconditioner,
+            tracing.host_read(torch.min(target), float),
+            preconditioner=preconditioner or self.preconditioner,
             max_iterations=chunk_iterations, dot=self.dot, matvec_impl=resolved_impl,
             relative_threshold=False)
         total_steps = 0
@@ -1008,17 +1029,17 @@ class ConjugateGradient:
         for _ in range(max_chunks):
             residual = rhs - matrix @ solution
             err = 0.5 * torch.sum(torch.square(residual), dim=0)
-            if bool(torch.all(err <= target)):
+            if tracing.host_read(torch.all(err <= target)):
                 exhausted = False
                 break
             delta, stats = chunk_solver.solve_with_stats(matrix, residual)
             solution = solution + delta
-            total_steps += int(stats.steps)
+            total_steps += tracing.host_read(stats.steps, int)
         if exhausted:
             # The last correction is not yet in err: take the residual again.
             residual = rhs - matrix @ solution
             err = 0.5 * torch.sum(torch.square(residual), dim=0)
-        converged = bool(torch.all(err <= target))
+        converged = tracing.host_read(torch.all(err <= target))
         return solution, CGStats(steps=torch.tensor(total_steps), error=err[:, None],
                                  converged=torch.tensor(converged))
 

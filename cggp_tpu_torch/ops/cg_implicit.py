@@ -19,7 +19,8 @@ of ``cggp_tpu/ops/cg_implicit.py``).
 
   The VJP is plain torch on every route, as in JAX (no kernel computes it).
   Every solve, forward or backward, runs through :func:`_implicit_cg_impl`,
-  looked up by name, so a caller can wrap it to read each solve's stats.
+  looked up by name, and is a ``cggp.cg.solve`` span while tracing is on
+  (:mod:`cggp_tpu_torch.tracing`); the VJP is a ``cggp.cg.vjp`` span.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
+from cggp_tpu_torch import tracing
 from cggp_tpu_torch.ops.cg import (CGStats, cg_loop, precond_apply_or_identity,
                                    agreed_stop_of, current_agreement,
                                    spectral_precond_state)
@@ -90,7 +92,8 @@ def kernel_precond_state(kernel: Kernel, kp, z: torch.Tensor, lam: torch.Tensor,
     coordinates where cos/sin are not small)."""
     if precondition is None:
         return ()
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("cggp.precond.build", z.device, m=int(z.shape[0]),
+                                       mode=precondition, rank=int(rank)):
         kp, z, lam = {k: v.detach() for k, v in kp.items()}, z.detach(), lam.detach()
         if mask is not None:
             mask = mask.detach().reshape(-1)
@@ -180,7 +183,20 @@ def _implicit_cg_impl(matvec, precond_state, rhs: torch.Tensor, error_threshold:
                       relative_threshold: bool) -> Tuple[torch.Tensor, CGStats]:
     """One matrix-free CG solve from ``v0 = 0``.  The forward and the
     backward solves of :func:`make_implicit_cg` both call it through this
-    module's namespace."""
+    module's namespace; a ``cggp.cg.solve`` span while tracing is on."""
+    if not tracing.ON:
+        return _implicit_solve(matvec, precond_state, rhs, error_threshold, max_iterations,
+                               max_steps_cycle, relative_threshold)
+    with tracing.solve_span(rhs, rhs.shape[-1], "matrix-free") as span:
+        solution, stats = _implicit_solve(matvec, precond_state, rhs, error_threshold,
+                                          max_iterations, max_steps_cycle, relative_threshold)
+        span.attrs["steps"] = stats.steps
+    return solution, stats
+
+
+def _implicit_solve(matvec, precond_state, rhs: torch.Tensor, error_threshold: float,
+                    max_iterations: int, max_steps_cycle: int,
+                    relative_threshold: bool) -> Tuple[torch.Tensor, CGStats]:
     return cg_loop(matvec, precond_apply_or_identity, precond_state, rhs, torch.zeros_like(rhs),
                    error_threshold=error_threshold, max_iterations=max_iterations,
                    max_steps_cycle=max_steps_cycle, relative_threshold=relative_threshold)
@@ -216,7 +232,9 @@ class _ImplicitSolve(torch.autograd.Function):
         with agreed_stop_of(ctx.agree):
             w, _ = solver.run(kp, z, lam, ctx.mask, dx, ctx.precond_state)
         needs = (*ctx.needs_input_grad[7:], ctx.needs_input_grad[5], ctx.needs_input_grad[6])
-        grads = matvec_vjp(solver.blocked, kp, z, lam, ctx.mask, solution, w, needs)
+        with tracing.span("cggp.cg.vjp", z.device, rows=int(solution.shape[-2]),
+                          m=int(z.shape[0])):
+            grads = matvec_vjp(solver.blocked, kp, z, lam, ctx.mask, solution, w, needs)
         kp_bar, z_bar, lam_bar = grads[:-2], grads[-2], grads[-1]
         neg = [None if g is None else -g for g in (z_bar, lam_bar, *kp_bar)]
         return (None, None, None, None, w if ctx.needs_input_grad[4] else None, *neg)

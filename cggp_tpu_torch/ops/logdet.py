@@ -49,6 +49,7 @@ import torch
 
 from torch.autograd.function import once_differentiable
 
+from cggp_tpu_torch import tracing
 from cggp_tpu_torch.ops.cg import ConjugateGradient, _cg_config, _cg_dense_impl
 from cggp_tpu_torch.ops.cg_implicit import matvec_vjp
 
@@ -208,7 +209,7 @@ def _slq_value(matrix: torch.Tensor, probes: torch.Tensor, lanczos_iters: int) -
     for j in range(probes.shape[-1]):
         z = probes[:, j]
         alphas, betas = _lanczos_tridiag(matrix, z, lanczos_iters)
-        evals, evecs = torch.linalg.eigh(_tridiag(alphas, betas))
+        evals, evecs = tracing.host_read(_tridiag(alphas, betas), torch.linalg.eigh)
         evals = torch.clamp(evals, min=tiny)
         weights = torch.square(evecs[0, :])
         per_probe.append(torch.sum(z * z) * torch.sum(weights * torch.log(evals)))
@@ -270,7 +271,7 @@ def _ritz_extremes(alphas: torch.Tensor, betas: torch.Tensor):
     used = torch.cumsum(bad.to(torch.int32), dim=0) == 0
     diag = torch.where(used, alphas, alphas[0])
     off = torch.where(used[1:], betas, torch.zeros_like(betas))
-    evs = torch.linalg.eigvalsh(_tridiag(diag, off))
+    evs = tracing.host_read(_tridiag(diag, off), torch.linalg.eigvalsh)
     return evs[0], evs[-1]
 
 
@@ -480,7 +481,7 @@ def _love_cache_from_tridiag(alphas: torch.Tensor, betas: torch.Tensor,
     diag = torch.where(used, a, torch.ones_like(a))
     off = torch.where(used[1:], b, torch.zeros_like(b))
     t = _tridiag(diag, off)
-    chol = torch.linalg.cholesky(t)
+    chol = tracing.host_read(t, torch.linalg.cholesky)
     return torch.linalg.solve_triangular(chol, q, upper=False)  # [k, M]
 
 
@@ -510,7 +511,7 @@ def _slq_from_tridiag(alphas: torch.Tensor, betas: torch.Tensor,
     betas [k - 1, P])."""
     a, b = alphas.T, betas.T  # [P, k], [P, k - 1]
     t = torch.diag_embed(a) + torch.diag_embed(b, 1) + torch.diag_embed(b, -1)
-    evals, evecs = torch.linalg.eigh(t)
+    evals, evecs = tracing.host_read(t, torch.linalg.eigh)
     evals = torch.clamp(evals, min=torch.finfo(probes_rows.dtype).tiny)
     quad = torch.sum(torch.square(evecs[:, 0, :]) * torch.log(evals), dim=-1)  # [P]
     scale = torch.sum(torch.square(probes_rows), dim=-1)  # ||z_p||^2

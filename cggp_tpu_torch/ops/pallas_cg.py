@@ -33,6 +33,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from cggp_tpu_torch import tracing
 from cggp_tpu_torch.ops.pallas_matvec import (OUTER_STAGES, check_device, check_operand,
                                                matmul_3xtf32_emulated)
 
@@ -51,7 +52,8 @@ def _cg_loop(matvec: Callable[[torch.Tensor], torch.Tensor], rhs: torch.Tensor,
     p = rhs
     rz = torch.sum(rhs * rhs, dim=-1, keepdim=True)
     i = 0
-    while i < max_iterations and bool(torch.any(0.5 * torch.sum(r * r, dim=-1, keepdim=True) > thr)):
+    while i < max_iterations and tracing.host_read(
+            torch.any(0.5 * torch.sum(r * r, dim=-1, keepdim=True) > thr)):
         pa = matvec(p)
         denom = torch.sum(p * pa, dim=-1, keepdim=True)
         gamma = torch.where(denom <= _MIN_FLOAT, zero, rz / denom)

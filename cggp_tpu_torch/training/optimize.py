@@ -80,6 +80,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from cggp_tpu_torch import tracing
 from cggp_tpu_torch.ops.linalg import pad_rows_to_blocks
 from cggp_tpu_torch.training.batching import (batched_indices, minibatch_index_iterator,
                                               seed_from)
@@ -167,15 +168,20 @@ def make_adam_step(loss_fn: Callable, optimizer: Adam, trainable_mask: Optional[
     by ``trainable_mask``, then ``optimizer``'s update.  ``loss`` is a 0-d
     tensor on the parameters' device."""
 
+    @tracing.call("cggp.train.step")
     def step(params: Dict, opt_state: AdamState, batch, key):
         leaves = [leaf.detach().requires_grad_() for leaf in _leaves(params)]
         live = _unflatten_like(params, leaves)
-        loss = loss_fn(live, batch, key)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(leaf) if g is None else g for leaf, g in zip(leaves, grads)]
-        grads = _mask_grads(_unflatten_like(params, grads), trainable_mask)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        new_params = _tree_map(lambda p, u: (p.detach() + u).to(p.dtype), params, updates)
+        with tracing.span("cggp.objective.loss"):
+            loss = loss_fn(live, batch, key)
+        with tracing.span("cggp.objective.grad"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with tracing.span("cggp.train.update"):
+            grads = [torch.zeros_like(leaf) if g is None else g
+                     for leaf, g in zip(leaves, grads)]
+            grads = _mask_grads(_unflatten_like(params, grads), trainable_mask)
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            new_params = _tree_map(lambda p, u: (p.detach() + u).to(p.dtype), params, updates)
         return new_params, opt_state, loss.detach()
 
     return step
@@ -202,6 +208,7 @@ def make_adam_multi_step(loss_fn: Callable, optimizer: Adam, data, trainable_mas
     non-trainable (the default)."""
     x, y = data
 
+    @tracing.call("cggp.train.chunk")
     def multi_step(params: Dict, opt_state: AdamState, idx_chunk: torch.Tensor, key):
         if recluster_fn is not None:
             params = recluster_fn(params)
@@ -397,7 +404,7 @@ def train_using_adam_and_update(
         if monitor is not None:
             # Reading the loss waits for the device: only on record chunks.
             if chunk_i % record_chunks == 0:
-                loss_value = float(losses[-1])
+                loss_value = tracing.host_read(losses[-1], float)
                 dt_ms = (time.perf_counter() - t0) * 1e3 / k
                 monitor.add_scalar("train/step_time_ms", dt_ms, iteration)
                 monitor.add_scalar("train/loss", loss_value, iteration)
@@ -417,12 +424,17 @@ def _row_server(mesh):
     rows of ``xb`` (its CG stop decisions agreed across the ranks), each
     output's rows gathered on every rank."""
     if mesh is None:
-        return lambda fn, xb: fn(xb)
+        def on_rows(fn, xb):
+            with tracing.span("cggp.serve.batch", rows=int(xb.shape[0])):
+                return fn(xb)
+
+        return on_rows
     from cggp_tpu_torch.ops.cg import agreed_stop
     from cggp_tpu_torch.parallel.mesh import agree_max, all_gather_rows, shard_batch
 
     def on_rows(fn, xb):
-        with agreed_stop(lambda flag: agree_max(mesh, flag)):
+        with tracing.span("cggp.serve.batch", rows=int(xb.shape[0])), \
+                agreed_stop(lambda flag: agree_max(mesh, flag)):
             out = fn(shard_batch(mesh, xb))
         if isinstance(out, tuple):
             return tuple(None if o is None else all_gather_rows(mesh, o) for o in out)
@@ -465,7 +477,7 @@ def train_full_batch_adam(params: Dict, loss_fn: Callable, iterations: int,
     for i in range(int(iterations)):
         params, opt_state, loss = step(params, opt_state, None, _step_generator(key, device))
         if monitor is not None:
-            monitor.add_scalar("train/loss", float(loss), i)
+            monitor.add_scalar("train/loss", tracing.host_read(loss, float), i)
             monitor(i, params)
     if monitor is not None:
         monitor.flush()
@@ -496,7 +508,7 @@ def train_chunked_adam(params: Dict, value_grad_fn: Callable, iterations: int,
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = _tree_map(lambda p, u: (p.detach() + u).to(p.dtype), params, updates)
         if monitor is not None:
-            monitor.add_scalar("train/loss", -float(value), i)
+            monitor.add_scalar("train/loss", -tracing.host_read(value, float), i)
             monitor(i, params)
     if monitor is not None:
         monitor.flush()
@@ -590,7 +602,8 @@ def train_using_lbfgs_and_update(params: Dict, loss_fn: Callable, max_iterations
     def objective(x64):
         loss, grad = _flat_value_and_grad(loss_fn, unravel, merged(x64))
         grad = torch.where(mask_flat, grad, torch.zeros_like(grad))
-        host = torch.cat([loss.reshape(1).to(grad.dtype), grad]).cpu().double().numpy()
+        host = tracing.host_read(torch.cat([loss.reshape(1).to(grad.dtype), grad]),
+                                 torch.Tensor.cpu).double().numpy()
         return float(host[0]), host[1:]
 
     def callback(x64):
@@ -601,7 +614,8 @@ def train_using_lbfgs_and_update(params: Dict, loss_fn: Callable, max_iterations
             monitor(state["iteration"], state["params"])
         state["iteration"] += 1
 
-    result = minimize(objective, flat0.cpu().double().numpy(), jac=True, method="L-BFGS-B",
+    x0 = tracing.host_read(flat0, torch.Tensor.cpu).double().numpy()
+    result = minimize(objective, x0, jac=True, method="L-BFGS-B",
                       options={"maxiter": int(max_iterations)}, callback=callback)
     final = unravel(merged(result.x))
     if monitor is not None:
@@ -809,7 +823,8 @@ def train_using_device_lbfgs(params: Dict, loss_fn: Callable, max_iterations: in
 
     def read_value_and_slope(value, grad, direction):
         """One host read: the loss and its slope along ``direction``."""
-        pair = torch.stack([value.to(grad.dtype), torch.dot(grad, direction)]).cpu().double()
+        pair = tracing.host_read(torch.stack([value.to(grad.dtype), torch.dot(grad, direction)]),
+                                 torch.Tensor.cpu).double()
         return np.float64(pair[0]), np.float64(pair[1])
 
     for done in range(1, int(max_iterations) + 1):
@@ -929,15 +944,16 @@ def make_metrics_callback(model, train_data, test_data, batch_size: int = 4096, 
                                                            f_var, yb)
                 sq_err_total = sq_err_total + torch.sum((yb - f_mean) ** 2)
                 lpd_total = lpd_total + torch.sum(lpd)
-            rmse = float(torch.sqrt(sq_err_total / n_test))
-            nlpd = float(-lpd_total / n_test)
+            rmse = tracing.host_read(torch.sqrt(sq_err_total / n_test), float)
+            nlpd = tracing.host_read(-lpd_total / n_test, float)
             x_train, y_train = train_data
             n_eval = min(x_train.shape[0], batch_size)
             batch = (_like(x_train[:n_eval], z), _like(y_train[:n_eval], z))
             if _takes_key(model):
-                elbo = float(model.elbo(params, batch, _fixed_generator(z.device, seed)))
+                elbo = tracing.host_read(
+                    model.elbo(params, batch, _fixed_generator(z.device, seed)), float)
             else:
-                elbo = float(model.elbo(params, batch))
+                elbo = tracing.host_read(model.elbo(params, batch), float)
         if check_numerics and not np.isfinite(elbo):
             raise FloatingPointError(f"non-finite ELBO at step {step}: {elbo}")
         return {"test/rmse": rmse, "test/nlpd": nlpd, "train/elbo": elbo}
@@ -968,11 +984,11 @@ def make_cg_stats_callback(model, data, batch_size: int = 2048, key=None) -> Cal
         batch = (_like(x_eval, z), _like(y_eval, z))
         stats = model.cg_stats(params, batch,
                                _fixed_generator(z.device, _fold_in(base_seed, step)))
-        steps = int(stats.steps)
-        max_error = float(torch.max(stats.error))
+        steps = tracing.host_read(stats.steps, int)
+        max_error = tracing.host_read(torch.max(stats.error), float)
         limit = cap if cap is not None else z.shape[0]
         if getattr(stats, "converged", None) is not None:
-            unconverged = not bool(stats.converged)
+            unconverged = not tracing.host_read(stats.converged)
         else:
             unconverged = steps >= int(limit)
         newly = unconverged and not was_unconverged[0]
@@ -998,14 +1014,15 @@ def make_param_callback(model) -> Callable:
         del step
         out = {}
         for name, value in model.kernel.constrained(params["kernel"]).items():
-            value = value.detach().cpu().numpy()
+            value = tracing.host_read(value.detach(), torch.Tensor.cpu).numpy()
             if value.ndim == 0:
                 out[f"kernel/{name}"] = value
             else:
                 for i, v in enumerate(value.reshape(-1)):
                     out[f"kernel/{name}[{i}]"] = np.asarray(v)
         out["likelihood/variance"] = (
-            model.likelihood.variance(params["likelihood"]).detach().cpu().numpy())
+            tracing.host_read(model.likelihood.variance(params["likelihood"]).detach(),
+                              torch.Tensor.cpu).numpy())
         return out
 
     return param_fn
@@ -1100,6 +1117,7 @@ def posterior_predict_scan(model, post, x, batch_size: int = 8192, mean_only: bo
     return mu.reshape(-1, mu.shape[-1])[:n], var.reshape(-1, var.shape[-1])[:n]
 
 
+@tracing.call("cggp.serve.predict")
 def predict_in_batches(model, params: Dict, x, batch_size=8192,
                        train_data=None, mean_only: bool = False,
                        use_posterior: bool = True, posterior_solver: str = "auto",
@@ -1214,7 +1232,7 @@ def predict_in_batches(model, params: Dict, x, batch_size=8192,
     post = build(posterior_solver) if posterior is None else posterior
     chol = getattr(post, "chol", None)
     if takes_solver and chol is not None and \
-            not bool(torch.all(torch.isfinite(torch.diagonal(chol)))):
+            not tracing.host_read(torch.all(torch.isfinite(torch.diagonal(chol)))):
         # One host check per cache build, never per batch: an explicit (or
         # prebuilt) chol cache raises, an auto-picked one falls back to CG.
         if requested_solver != "auto":
