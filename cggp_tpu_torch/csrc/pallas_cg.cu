@@ -28,13 +28,26 @@
 //     steps.
 //   * Phase A, pA = p @ A: 128 x 128 output tiles (row tile, column block),
 //     64 x 8 = 512 at R = 8192, taken in turn by the persistent blocks (one
-//     per SM: 150 KB of dynamic shared memory each for the ring, 64 KB more
-//     for the outer depth sums) through the main loop B1 uses
-//     (tiles::tiled_product, 3xTF32 wgmma, the depth summed at two levels,
-//     every wgmma group waited for before the tile is stored).
+//     per SM) through B2's own pipeline (cg_product.cuh).  What bounds a
+//     tile is the tensor cores' time, 12 wgmma a warpgroup and stage; what
+//     held it at 44 % of that rate in B1's loop (PERF.md §6) was the
+//     loop's schedule: both warpgroups met at a block barrier every stage
+//     and drained the tensor cores together twice a stage for their IEEE
+//     adds, and the same threads issued nine misaligned 16-byte copies per
+//     p row of a stage (p's rows M words apart, M odd).  So here p lives at
+//     a 16-byte row stride (round4(M) words, zero padding) and a producer
+//     warpgroup (its registers moved to the consumers by setmaxnreg) copies
+//     each stage by one TMA copy of p and one bulk copy of A's split tile
+//     into a 3-slot ring guarded by mbarriers; the two consumer warpgroups
+//     wait only on their slots' barriers and issue their wgmma groups in
+//     turns, so one's drains and adds overlap the other's products.  The
+//     sums are those of B1's loop, bit for bit.  The product still runs at
+//     ~53 % of the tensor cores' rate (b2_phase_probe.py): the consumers'
+//     own schedule (the split, two drains and the adds a stage), not the
+//     copies (~21-29 us a tile alone at R = 2011-8192), holds it there.
 //     grid.sync().
-//   * Phase B, one warp per row: ONE set of cp.async copies stages the row's
-//     p, r, pA and v in the block's shared memory (idle between products);
+//   * Phase B, one consumer warp per row: ONE set of cp.async copies stages
+//     the row's p, r, pA and v in the ring (idle between products);
 //     from there the warp takes p.pA, writes v and r and takes r.r, then
 //     writes p = r + (p rz') / rz from the staged r and p.  Nothing is read
 //     from global memory twice.  p.pA comes from the staged row, not from
@@ -81,6 +94,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cg_product.cuh"
 #include "tiled_matvec.cuh"
 
 namespace cgrp = cooperative_groups;
@@ -136,11 +150,12 @@ __device__ __forceinline__ int any_over(cgrp::grid_group& grid, int* flags, int 
 
 // Phase B stages a row of p, r, pA and v in shared memory (the product's
 // ring is idle then), kSeg words of each at a time: 16.5 KB a warp, 132 KB
-// for the block's eight warps.
+// for the block's eight consumer warps.
 constexpr int kSeg = 1024;
 constexpr int kSegWords = kSeg + 8;  // the 16-byte chunks covering kSeg words at any skew
-static_assert(kWarps * 4 * kSegWords * sizeof(float) <= cggp::tiles::kSmemBytes,
-              "phase B's row buffers fit the product's shared memory");
+static_assert(kWarps == cggp::cg_product::kConsumerWarps, "one row at a time per consumer warp");
+static_assert(kWarps * 4 * kSegWords * sizeof(float) <= cggp::cg_product::kRingBytes,
+              "phase B's row buffers fit the product's ring");
 
 // Copies the aligned 16-byte chunks that cover x[start, start + len) of an
 // array of `words` words into dst with cp.async.cg (through L2), one warp;
@@ -171,52 +186,96 @@ __device__ __forceinline__ void staged() {
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// Two consumer warpgroups (cg_product.cuh), which take the product's wgmma,
+// the row pass (one warp per row) and the stop rule's vote, and a producer
+// warpgroup, whose first thread copies the product's stages.  Both roles
+// run the same steps and meet at the same grid.sync()s; neither returns to
+// the other's code, so setmaxnreg can move registers between them.  p has
+// rows of p_stride = round4(m) words (zeros past m), described by p_map.
+__global__ void __launch_bounds__(cggp::cg_product::kThreads, 1)
     cg_tiled_kernel(const float* b, const uint32_t* b_split, float* v, float* r, float* p,
                     float* pa, float* rz, int* flags, int* steps, int rows, int m, float thr,
-                    int max_iterations) {
+                    int max_iterations, const __grid_constant__ CUtensorMap p_map) {
+  namespace cgp = cggp::cg_product;
   cgrp::grid_group grid = cgrp::this_grid();
   extern __shared__ __align__(1024) float smem[];
+  const int col_blocks = cggp::tiles::col_blocks(m);
+  const int units = (rows + kBlock - 1) / kBlock * col_blocks;
+  const int nk = cggp::tiles::stages(m);
+  const cgp::Ring ring = cgp::ring_of(smem);
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < cgp::kSlots; ++j) {
+      cggp::tf32x3::mbarrier_init(&ring.full[j], 1);
+      cggp::tf32x3::mbarrier_init(&ring.empty[j], cgp::kConsumerWarps);
+    }
+    cggp::tf32x3::fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  int it = 0;
+  uint32_t q = 0;  // the block's stages through the ring, over all steps
+  if (threadIdx.x >= cgp::kConsumerThreads) {
+    // Producer: each step's copies once every block's p is written.
+    cggp::tf32x3::set_max_registers<cgp::kProducerRegs, false>();
+    int any = any_over(grid, flags, 0, 0);
+    while (any && it < max_iterations) {
+      if (threadIdx.x == cgp::kConsumerThreads) {
+        cgp::fence_proxy_async_global();
+        for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+          cgp::produce_tile(ring, &p_map, b_split, col_blocks, unit % col_blocks,
+                            unit / col_blocks * kBlock, nk, q);
+        }
+      }
+      grid.sync();
+      ++it;
+      any = any_over(grid, flags, it & 1, 0);
+    }
+    return;
+  }
+
+  cggp::tf32x3::set_max_registers<cgp::kConsumerRegs, true>();
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int first_row = blockIdx.x * kWarps + warp;  // this warp's rows
   const int row_stride = gridDim.x * kWarps;
-  const int col_blocks = cggp::tiles::col_blocks(m);
-  const int units = (rows + kBlock - 1) / kBlock * col_blocks;
+  const int p_stride = cgp::row_stride(m);
   const size_t words = static_cast<size_t>(rows) * m;
+  const size_t p_words = static_cast<size_t>(rows) * p_stride;
   float* s_p = smem + warp * 4 * kSegWords;  // this warp's row buffers
   float* s_r = s_p + kSegWords;
   float* s_pa = s_r + kSegWords;
   float* s_v = s_pa + kSegWords;
+  float* outer = cgp::outer_of(smem);
   const bool one_seg = m <= kSeg;
+  if (warp >= 4) cgp::turn_pass(1);  // the first turn is the first warpgroup's
 
   // v0 = 0, r0 = p0 = b, rz0 = b.b
   int over = 0;
   for (int row = first_row; row < rows; row += row_stride) {
     const size_t base = static_cast<size_t>(row) * m;
+    const size_t base_p = static_cast<size_t>(row) * p_stride;
     float bb = 0.f;
     for (int c = lane; c < m; c += 32) {
       const float x = b[base + c];
       v[base + c] = 0.f;
       r[base + c] = x;
-      p[base + c] = x;
+      p[base_p + c] = x;
       bb = fmaf(x, x, bb);
     }
+    for (int c = m + lane; c < p_stride; c += 32) p[base_p + c] = 0.f;
     bb = warp_sum(bb);
     if (lane == 0) rz[row] = bb;
     over |= 0.5f * bb > thr;
   }
 
-  int it = 0;
   int any = any_over(grid, flags, 0, over);
   while (any && it < max_iterations) {
     // (A) pA = p @ A, one 128 x 128 tile per unit.
     for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
-      const int row0 = unit / col_blocks * kBlock;
-      const int cb = unit % col_blocks;
       float acc[64];
-      cggp::tiles::tiled_product(p, rows, m, b_split, col_blocks, cb, row0, smem, acc);
-      cggp::tiles::store_tile(pa, rows, m, row0, cb * kBlock, acc);
+      cgp::consume_tile(ring, nk, q, outer, acc);
+      cggp::tiles::store_tile(pa, rows, m, unit / col_blocks * kBlock,
+                              unit % col_blocks * kBlock, acc);
     }
     grid.sync();
 
@@ -228,11 +287,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     over = 0;
     for (int row = first_row; row < rows; row += row_stride) {
       const size_t base = static_cast<size_t>(row) * m;
+      const size_t base_p = static_cast<size_t>(row) * p_stride;
       int kp = 0, kr = 0, kpa = 0, kv = 0;  // skews of the staged rows
       float denom = 0.f;
       for (int seg0 = 0; seg0 < m; seg0 += kSeg) {
         const int len = min(kSeg, m - seg0);
-        kp = stage_row(p, words, base + seg0, len, s_p);
+        kp = stage_row(p, p_words, base_p + seg0, len, s_p);
         kpa = stage_row(pa, words, base + seg0, len, s_pa);
         if (one_seg) {
           kr = stage_row(r, words, base, m, s_r);
@@ -249,7 +309,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int seg0 = 0; seg0 < m; seg0 += kSeg) {
         const int len = min(kSeg, m - seg0);
         if (!one_seg) {
-          kp = stage_row(p, words, base + seg0, len, s_p);
+          kp = stage_row(p, p_words, base_p + seg0, len, s_p);
           kr = stage_row(r, words, base + seg0, len, s_r);
           kpa = stage_row(pa, words, base + seg0, len, s_pa);
           kv = stage_row(v, words, base + seg0, len, s_v);
@@ -268,14 +328,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       rz_new = warp_sum(rz_new);
       const bool momentum = !(rz_old <= kMinFloat);
       for (int c = lane; c < m; c += 32) {
-        const float pc = one_seg ? s_p[kp + c] : load_l2(p + base + c);
+        const float pc = one_seg ? s_p[kp + c] : load_l2(p + base_p + c);
         const float rc = one_seg ? s_r[kr + c] : load_l2(r + base + c);
-        p[base + c] = rc + (momentum ? (pc * rz_new) / rz_old : 0.f);
+        p[base_p + c] = rc + (momentum ? (pc * rz_new) / rz_old : 0.f);
       }
       __syncwarp();  // the next row's copies overwrite the buffers
       if (lane == 0) rz[row] = rz_new;
       over |= 0.5f * rz_new > thr;
     }
+    // The row pass's accesses to the ring come before the next step's TMA
+    // writes into it.
+    cggp::tf32x3::fence_proxy_async();
     ++it;
     any = any_over(grid, flags, it & 1, over);
   }
@@ -438,6 +501,51 @@ const void* kernel_of(int path) {
 
 int round4(long long words) { return static_cast<int>((words + 3) / 4 * 4); }
 
+int threads_of(int path) { return path == kTiled ? cggp::cg_product::kThreads : kThreads; }
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link to
+// libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// The TMA descriptor of the tiled path's p: [rows][m] fp32 at a row stride
+// of round4(m) words, boxes of 128 rows x 32 depths in the 128-byte swizzle
+// of a stage tile; rows and depths past the edge read as zero.
+bool p_tensor_map(float* p, int rows, int m, CUtensorMap* map) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(m), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {
+      static_cast<cuuint64_t>(cggp::cg_product::row_stride(m)) * sizeof(float)};
+  const cuuint32_t box[2] = {cggp::tf32x3::kStageDepth, kBlock};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, p, dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 // The launch of a solve of `rows` right-hand sides of length m on `device`:
@@ -470,7 +578,7 @@ extern "C" int cggp_cg_plan(int rows, int m, int device, int* path, int* grid, i
   if ((err = budget(kSmallStreamed, &streamed_budget)) != cudaSuccess) return err;
   *path = kTiled;
   *cols = 0;
-  *smem_bytes = static_cast<long long>(cggp::tiles::kSmemBytes + cggp::tiles::kOuterBytes);
+  *smem_bytes = static_cast<long long>(cggp::cg_product::kSmemBytes);
   if (rows <= kSmallRows) {
     const int blocks = sms < m ? sms : m;
     const int c = (m + blocks - 1) / blocks;
@@ -489,13 +597,13 @@ extern "C" int cggp_cg_plan(int rows, int m, int device, int* path, int* grid, i
                              static_cast<int>(*smem_bytes));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads_of(*path),
                                                       static_cast<size_t>(*smem_bytes));
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   if (*path == kTiled) {
-    // Enough blocks for every tile unit or every row's warp, at most what
-    // is resident (1 per SM at 214 KB: 132 on an H100).
+    // Enough blocks for every tile unit or every row's consumer warp, at
+    // most what is resident (1 per SM at 208 KB: 132 on an H100).
     const int units = (rows + kBlock - 1) / kBlock * cggp::tiles::col_blocks(m);
     const int row_blocks = (rows + kWarps - 1) / kWarps;
     const int wanted = units > row_blocks ? units : row_blocks;
@@ -506,12 +614,14 @@ extern "C" int cggp_cg_plan(int rows, int m, int device, int* path, int* grid, i
   return cudaSuccess;
 }
 
-// Words of the solve's work buffer (16-byte aligned parts), and of the split
-// A (tiled path only).
+// Words of the solve's work buffer (16-byte aligned parts; on the tiled
+// path p first, at a row stride of round4(m) words), and of the split A
+// (tiled path only).
 extern "C" long long cggp_cg_work_words(int rows, int m, int path, int grid) {
   const long long rm = round4(static_cast<long long>(rows) * m);
   if (path == kTiled) {
-    return 3 * rm + round4(rows) + round4(2LL * grid);
+    return static_cast<long long>(rows) * cggp::cg_product::row_stride(m) + 2 * rm +
+           round4(rows) + round4(2LL * grid);
   }
   return rm + 2LL * round4(static_cast<long long>(grid) * rows);
 }
@@ -520,7 +630,7 @@ extern "C" long long cggp_cg_split_words(int m, int path) {
   return path == kTiled ? cggp::tiles::split_words(m) : 0;
 }
 
-// Solves v A = b.  work: cggp_cg_work_words words, b_split:
+// Solves v A = b.  work: cggp_cg_work_words words, 16-byte aligned, b_split:
 // cggp_cg_split_words words (tiled path), steps: one int.  The plan's
 // arguments come from cggp_cg_plan for the same rows, m and device.
 // Returns a cudaError_t: the argument check's, else the launch's, else
@@ -545,14 +655,18 @@ extern "C" int cggp_pallas_cg_solve(const float* a, const float* b, float* v, fl
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const uint32_t* b_tiles = split;
-    float* r = work;
-    float* p = r + rm;
-    float* pa = p + rm;
+    float* p = work;
+    float* r = p + static_cast<long long>(rows) * cggp::cg_product::row_stride(m);
+    float* pa = r + rm;
     float* rz = pa + rm;
     int* flags = reinterpret_cast<int*>(rz + round4(rows));
+    if ((reinterpret_cast<uintptr_t>(p) & 15) != 0) return cudaErrorInvalidValue;
+    // A tensor map that cannot be made is an error: there is no other loader.
+    CUtensorMap p_map{};
+    if (!p_tensor_map(p, rows, m, &p_map)) return cudaErrorNotSupported;
     void* args[] = {&b, &b_tiles, &v, &r, &p, &pa, &rz, &flags, &steps,
-                    &rows, &m, &thr, &max_iterations};
-    err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
+                    &rows, &m, &thr, &max_iterations, &p_map};
+    err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads_of(path)), args,
                                       static_cast<size_t>(smem_bytes), s);
   } else {
     float* r_all = work;

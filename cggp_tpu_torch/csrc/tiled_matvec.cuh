@@ -1,6 +1,7 @@
-// The 3xTF32 tiled product p @ A shared by kernels B1 (pallas_matvec.cu,
-// one output tile per block) and B2 (pallas_cg.cu, every CG step of its
-// cooperative grid): one body, so a change to the main loop reaches both.
+// The 3xTF32 tiled product p @ A of kernel B1 (pallas_matvec.cu, one output
+// tile per block).  B2 (pallas_cg.cu) shares its split of A, its tile layout
+// and store_tile, and runs its own main loop on the same sums
+// (cg_product.cuh): B2 owns its p and lays it out for TMA, B1 cannot.
 //
 // Layout.  A is symmetric (both TPU kernels assume it), so the K-major B
 // tile of column block cb and stage s, B(k, c) = A[k][c] = A[c][k], is read
@@ -23,9 +24,8 @@
 // outer sums (chip_smoke.py's solver_family, H100 80GB HBM3 at 700 W; no
 // time added: 8.0 ms a call).  Up to kFlushStages stages (M <= 1024) the
 // outer sum only adds the running sum to zero: the same bits as one level.
-// Every copy is cp.async.cg, which reads through L2 and never L1: B2 reads
-// p that other blocks rewrote since its last step, and L1 is not coherent
-// across SMs.
+// Every copy is cp.async.cg, which reads through L2 and never L1 (L1 is not
+// coherent across SMs).
 //
 // Alignment.  M = 989 is odd, so rows of p are only 4-byte aligned: 16-byte
 // copies, float4 loads and TMA descriptors (global strides must be

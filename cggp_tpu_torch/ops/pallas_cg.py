@@ -10,14 +10,16 @@ while any row has ``0.5 |r|^2 > threshold`` and ``i < max_iterations``;
 1e-16``; the association ``(p * new_rz) / rz``.  A converged row keeps
 stepping until every row has converged.  The TPU wrapper pads M to 128 with
 a unit diagonal and R to 8 with zero rows; neither changes the answer, and
-neither version here pads.  ``pallas_cg_solve.launches`` counts launches.
+neither version here pads.  ``pallas_cg_solve.launches`` counts launches,
+``pallas_cg_solve.launches_by_path`` counts them by the plan's path, and a
+``cggp.cg.solve`` span open around a launch records the path.
 
 Arithmetic.  The kernel has two paths (:func:`pallas_cg_plan`).  On the
 tiled path (above 8 rows, or where the small-R path does not fit) it
-computes the product ``p @ A`` in 3xTF32 on the tensor cores, through the
-main loop of kernel B1 (``csrc/tiled_matvec.cuh``, the depth summed at two
-levels), with A split into its TF32 halves once per solve; the dots and
-updates are IEEE fp32.  On the
+computes the product ``p @ A`` in 3xTF32 on the tensor cores, through its
+own pipeline (``csrc/cg_product.cuh``: TMA copies, warp-specialised, the
+sums of kernel B1's loop with the depth summed at two levels), with A split
+into its TF32 halves once per solve; the dots and updates are IEEE fp32.  On the
 small-R path (up to 8 rows) everything, the product included, is IEEE fp32
 FMA.  The plain version computes in IEEE fp32 (TF32 stays off);
 :func:`pallas_cg_solve_3xtf32_emulated` is the same loop with the product
@@ -139,9 +141,10 @@ def pallas_cg_solve(a: torch.Tensor, rhs: torch.Tensor, threshold: float,
     lib = _build.load()
     plan = pallas_cg_plan(rows, m, device)
     path = PATHS.index(plan["path"])
-    # The solve's state (r, p, pA, r.r and stop flags on the tiled path; r
-    # and the blocks' partial dots on the small-R path) and, on the tiled
-    # path, A split into its TF32 halves (8 MB at M = 989).
+    # The solve's state (p at a 16-byte row stride, r, pA, r.r and stop
+    # flags on the tiled path; r and the blocks' partial dots on the small-R
+    # path) and, on the tiled path, A split into its TF32 halves (8 MB at
+    # M = 989).
     work = torch.empty(lib.cggp_cg_work_words(rows, m, path, plan["grid"]),
                        dtype=torch.float32, device=device)
     split_words = lib.cggp_cg_split_words(m, path)
@@ -157,7 +160,10 @@ def pallas_cg_solve(a: torch.Tensor, rhs: torch.Tensor, threshold: float,
                                  plan["cols"], plan["smem_bytes"], stream),
         "pallas_cg_solve")
     pallas_cg_solve.launches += 1
+    pallas_cg_solve.launches_by_path[plan["path"]] += 1
+    tracing.solve_path(plan["path"])
     return solution, steps[0]
 
 
 pallas_cg_solve.launches = 0
+pallas_cg_solve.launches_by_path = dict.fromkeys(PATHS, 0)

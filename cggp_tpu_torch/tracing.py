@@ -32,7 +32,8 @@ the call.
 Counters: :func:`host_read` counts every read of a device value on the
 host by the function that reads; each ``cggp.cg.solve`` span keeps its
 solve's ``(rows, m, steps)``, ``steps`` as the device tensor until the
-summary.
+summary, and the kernel B2 solve inside it its launch ``path``
+(:func:`solve_path`).
 
 The records of one stretch of traced calls form one :class:`Recording`:
 a new one starts with a :func:`recording` block, or at the first traced
@@ -127,7 +128,9 @@ class Recording:
 
     def summary(self) -> Dict:
         """``calls``; ``host_reads`` by site and ``host_reads_total``;
-        ``solves``; and by span name its ``count``, ``host_s`` (summed
+        ``solves``; ``solve_paths``, the solves by B2 launch path (a solve
+        that launched no B2 kernel has none); and by span name its
+        ``count``, ``host_s`` (summed
         durations), ``self_s`` and ``device_ms`` (summed
         over spans with CUDA events and no same-named ancestor: a solve
         that calls a solve is counted once; None without events).  Call
@@ -142,9 +145,11 @@ class Recording:
             entry["self_s"] += own[id(s)]
             if s.events is not None and all(a.name != s.name for a in s.ancestors()):
                 entry["device_ms"] = (entry["device_ms"] or 0.0) + s.device_ms()
+        paths = Counter(s.attrs["path"] for s in self.spans
+                        if s.name == SOLVE and "path" in s.attrs)
         return {"calls": self.calls, "host_reads": dict(self.host_reads),
                 "host_reads_total": sum(self.host_reads.values()), "solves": self.solves(),
-                "spans": spans}
+                "solve_paths": dict(paths), "spans": spans}
 
 
 class _State:
@@ -277,6 +282,18 @@ def solve_span(rhs: torch.Tensor, m: int, route: str):
     an [m, m] system, timed on ``rhs``'s device; the site sets
     ``attrs["steps"]`` to the solve's steps tensor.  Only while on."""
     return _Scope(SOLVE, rhs.device, {"rows": int(rhs.shape[-2]), "m": int(m), "route": route})
+
+
+def solve_path(path: str) -> None:
+    """Record kernel B2's launch ``path`` on the innermost open
+    ``cggp.cg.solve`` span (none open: nothing).  Only while on."""
+    if not ON:
+        return
+    node = _STATE.innermost()
+    while node is not None and node.name != SOLVE:
+        node = node.parent
+    if node is not None:
+        node.attrs["path"] = path
 
 
 def host_read(value, cast: Callable = bool):

@@ -2,7 +2,7 @@
 fp64 reference, at chip_smoke.py's tolerances: B1 (``pallas_matvec``), B2
 (``pallas_cg_solve``: both launch paths, each side of the small-R switches,
 the edge cases, bitwise repeats, the training step's block of mixed-scale
-and zero rows), B3 (``gram_matvec`` / ``kuu_matvec``), and the CG autograd
+and zero rows, the tiled path's product pipeline, the launches by path), B3 (``gram_matvec`` / ``kuu_matvec``), and the CG autograd
 Function's gradients through B2 and B1.
 
 Every test takes the ``cuda`` fixture, which skips it without a card (the
@@ -203,6 +203,61 @@ def test_b2_shapes_match_plain_and_fp64(cuda, rows, m):
     assert path == ("small_resident" if rows <= 8 else "tiled")
     _check_b2(a, b)
 
+
+
+@pytest.mark.parametrize("rows,m", [(2011, 995), (808, 995), (2300, 995), (8192, 995),
+                                    (2011, 996), (2011, 777)])
+def test_b2_pipeline_matches_plain_and_fp64(cuda, rows, m):
+    """The tiled path's product pipeline (csrc/cg_product.cuh) at
+    dense-train's shape (R = 2011, M = 995: one wave of 128 tiles), at
+    ragged R (808 and 2300: part of the wave idle, a ragged last row tile),
+    at R = 8192 (up to four tiles a block), at an M with no row padding
+    (996) and at M = 777, held as test_b2_matches_plain_and_fp64 holds the
+    dense systems; two runs bitwise equal, both counted as tiled launches."""
+    a, b = _spd_system(cuda, m, rows, seed=rows + m)
+    assert pallas_cg_plan(rows, m, cuda)["path"] == "tiled"
+    tiled = pallas_cg_solve.launches_by_path["tiled"]
+    got, steps = pallas_cg_solve(a, b, B2_THRESHOLD, m)
+    again, steps_again = pallas_cg_solve(a, b, B2_THRESHOLD, m)
+    plain, steps_plain = pallas_cg_solve_plain(a, b, B2_THRESHOLD, m)
+    torch.cuda.synchronize()
+    assert pallas_cg_solve.launches_by_path["tiled"] == tiled + 2
+    assert torch.equal(got, again) and int(steps) == int(steps_again)
+    exact = torch.linalg.solve(a.double(), b.double().T).T
+    tol = 2e-3 * float(exact.abs().max())
+    assert int(steps) < m
+    assert abs(int(steps) - int(steps_plain)) <= max(3, 0.05 * int(steps_plain))
+    assert float((got - plain).abs().max()) <= tol
+    err_exact = float((got.double() - exact).abs().max())
+    assert err_exact <= tol
+    assert err_exact <= 2 * float((plain.double() - exact).abs().max())
+
+
+def test_b2_pipeline_repeats_bitwise_at_the_dense_shapes(cuda):
+    # The committed M = 989 system at dense-train's R = 2011 and at the
+    # serving batch R = 8192: three runs of each solve bitwise equal.
+    a, rhs = _dense_system(cuda)
+    m = a.shape[0]
+    for rows in (2011, 8192):
+        b = rhs["kmn_batch"][:rows].contiguous()
+        runs = [pallas_cg_solve(a, b, 1e-8, m) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(v, runs[0][0]) and int(k) == int(runs[0][1]) for v, k in runs)
+
+
+def test_b2_launches_by_path(cuda):
+    # One tiled and one small-R solve: each counted under its plan's path,
+    # the total by both.
+    counts, total = dict(pallas_cg_solve.launches_by_path), pallas_cg_solve.launches
+    for rows in (130, 1):
+        a, b = _spd_system(cuda, 989, rows, seed=11)
+        pallas_cg_solve(a, b, B2_THRESHOLD, 989)
+    torch.cuda.synchronize()
+    after = pallas_cg_solve.launches_by_path
+    assert after["tiled"] - counts["tiled"] == 1
+    assert after["small_resident"] - counts["small_resident"] == 1
+    assert after["small_streamed"] == counts["small_streamed"]
+    assert pallas_cg_solve.launches == total + 2
 
 def test_b2_two_level_depth_sums_at_m_32768(cuda):
     """B2's tiled path at the solver family's shape (R = 16 rows of

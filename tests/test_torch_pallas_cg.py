@@ -18,7 +18,9 @@ from cggp_tpu.ops.kernels import SquaredExponential as JaxSE
 from cggp_tpu.ops.linalg import add_diagonal as jax_add_diagonal
 from cggp_tpu.ops.pallas_cg import pallas_cg_solve as jax_pallas_cg_solve
 from cggp_tpu_torch.ops.cg import ConjugateGradient, conjugate_gradient
-from cggp_tpu_torch.ops.pallas_cg import pallas_cg_solve, pallas_cg_solve_3xtf32_emulated
+from cggp_tpu_torch import tracing
+from cggp_tpu_torch.ops.pallas_cg import (PATHS, pallas_cg_solve,
+                                           pallas_cg_solve_3xtf32_emulated)
 
 torch.set_num_threads(1)
 
@@ -184,6 +186,22 @@ def test_pallas_cg_solve_refuses_bad_operands():
     with pytest.raises(ValueError):
         pallas_cg_solve(a, rhs.T, 1e-6, 10)
 
+
+
+def test_launches_by_path_counts_kernel_launches_only():
+    """One counter per plan path, beside the total; the plain loop that CPU
+    tensors take launches nothing, so it counts nothing and records no path
+    on the solve's span."""
+    assert PATHS == ("tiled", "small_resident", "small_streamed")
+    assert set(pallas_cg_solve.launches_by_path) == set(PATHS)
+    before = dict(pallas_cg_solve.launches_by_path), pallas_cg_solve.launches
+    a, rhs = (torch.as_tensor(t) for t in _system(0, m=16, r=2))
+    with tracing.recording() as rec:
+        with tracing.solve_span(rhs, 16, "pallas_resident") as span:
+            _, steps = pallas_cg_solve(a, rhs, 1e-6, 10)
+            span.attrs["steps"] = steps
+    assert (dict(pallas_cg_solve.launches_by_path), pallas_cg_solve.launches) == before
+    assert rec.summary()["solve_paths"] == {}
 
 # ConjugateGradient routes: (matvec_impl, dtype, threshold, relative).
 ROUTES = [

@@ -293,3 +293,31 @@ def test_a_chunk_is_one_call_of_its_steps():
     assert len(summary["solves"]) == 4
     chunk = next(s for s in rec.spans if s.name == "cggp.train.chunk")
     assert all(s is chunk or chunk in s.ancestors() for s in rec.spans)
+
+
+@pytest.mark.parametrize("nested", [False, True])
+def test_solve_path_lands_on_the_innermost_solve(nested):
+    """``tracing.solve_path``: kernel B2's launch path on the innermost open
+    solve span, through a child span too, counted by the summary's
+    ``solve_paths``; nothing while off or outside a solve."""
+    rhs = torch.zeros(3, 4)
+    tracing.solve_path("tiled")  # off
+    with tracing.recording() as rec:
+        tracing.solve_path("tiled")  # no solve open
+        with tracing.solve_span(rhs, 4, "pallas_resident") as span:
+            span.attrs["steps"] = torch.tensor(2)
+            if nested:
+                with tracing.span("inner"):
+                    tracing.solve_path("tiled")
+            else:
+                tracing.solve_path("tiled")
+        with tracing.solve_span(rhs, 4, "pallas_resident") as span:
+            span.attrs["steps"] = torch.tensor(1)
+            tracing.solve_path("small_resident")
+        with tracing.solve_span(rhs, 4, "xla") as span:
+            span.attrs["steps"] = torch.tensor(1)
+    summary = rec.summary()
+    assert summary["solve_paths"] == {"tiled": 1, "small_resident": 1}
+    assert [s.attrs.get("path") for s in rec.spans if s.name == tracing.SOLVE] == [
+        "tiled", "small_resident", None]
+    assert summary["solves"] == [(3, 4, 2), (3, 4, 1), (3, 4, 1)]
